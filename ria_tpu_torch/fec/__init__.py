@@ -1,6 +1,8 @@
 from .ldpc_matrix import BLOCK_BITS, CODE_PARAMS, RATE_ENUM, RECOMMENDED_ITERS, get_code, encode_np
-from .ldpc import (DecodeResult, LDPCDecoder, decode_batch, make_decoder, make_decoder_vf,
-                   make_encoder)
+from .ldpc import (DecodeResult, LDPCCodec, LDPCDecoder, candidate_plan, decode_batch,
+                   decode_candidates, decode_chunked, decode_with_retries, make_decoder,
+                   make_decoder_vf, make_encoder, make_tile_decoder)
+from .ldpc_cuda import make_cuda_decoder, make_cuda_decoder_v1
 
 __all__ = [
     "BLOCK_BITS",
@@ -10,9 +12,17 @@ __all__ = [
     "get_code",
     "encode_np",
     "DecodeResult",
+    "LDPCCodec",
     "LDPCDecoder",
+    "candidate_plan",
     "decode_batch",
+    "decode_candidates",
+    "decode_chunked",
+    "decode_with_retries",
     "make_decoder",
     "make_decoder_vf",
     "make_encoder",
+    "make_tile_decoder",
+    "make_cuda_decoder",
+    "make_cuda_decoder_v1",
 ]

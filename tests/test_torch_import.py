@@ -17,7 +17,8 @@ def test_port_imports_without_jax():
         "import ria_tpu_torch, ria_tpu_torch.convert, ria_tpu_torch.entry\n"
         "import ria_tpu_torch.utils.mt19937, ria_tpu_torch.utils.bits\n"
         "import ria_tpu_torch.fec.ldpc_matrix, ria_tpu_torch.fec.ldpc\n"
-        "import ria_tpu_torch.fec.ldpc_kernel, ria_tpu_torch.sync.chirp\n"
+        "import ria_tpu_torch.fec.ldpc_kernel, ria_tpu_torch.fec.ldpc_cuda\n"
+        "import ria_tpu_torch.tools.ldpc_bench, ria_tpu_torch.sync.chirp\n"
         "import ria_tpu_torch.wave.mc_dpsk, ria_tpu_torch.phy.pipeline\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ria_tpu.')))\n"
