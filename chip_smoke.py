@@ -11,7 +11,9 @@ eight phases, each printing its lines and raising on failure:
 
 1. device: the card's name and power limit, as nvidia-smi gives them;
 2. build: nvcc for sm_90a, both sources at once, with each build time and
-   ptxas resource lines;
+   ptxas resource lines; K1's registers, spill and shared bytes as the CUDA
+   runtime reports them, and how many codewords the card holds at once
+   (it fails on any spill, or if fewer than the A/B point's 512 fit);
 3. kernels vs plain: K1 against the plain PyTorch decoder, and K2 against
    its plain version (``plain_v1``) and against K1, on the card, for every
    rate at B = 8 and 256 and for R1/4 at B = 512 (mixed difficulty);
@@ -29,7 +31,11 @@ eight phases, each printing its lines and raising on failure:
 7. timing with CUDA events: the RX chain in samples/s; K1 against the plain
    decoder and K2 against ``plain_v1`` and K1, at B = 256 (the main path's
    codewords), B = 512 mixed and the A/B entry point's LLRs; each kernel's
-   device time per launch from torch.profiler;
+   device time per launch from torch.profiler, its bound (the larger of
+   bytes over 3.35 TB/s and operations over 67 TFLOP/s, the H100 SXM's
+   published peaks) and the share of the bound it reaches, and the K1/K2
+   device-time ratio; the serial floor (K1 and K2 at B = 1 on an A/B row
+   that runs all 50 iterations); K1's host microseconds per call;
 8. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -51,6 +57,15 @@ FACTORS = np.array([0.9375, 0.875, 0.75, 0.625, 0.5], np.float32)
 LLR_ATOL = 1e-3
 MIXED_MAX_FLIPS = 0.01  # share of rows of the B = 512 mixed batch
 BENCH_ARGS = ["--rate", "R1_4", "--batch", "512", "--snr-db", "-1", "--reps", "20"]
+# Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W limit).
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+# Operations of min-sum BP per edge and iteration, counted from K1's source:
+# gather side 5 (g - c2v, two clamp compares, the sign of g, the parity xor);
+# check update 8 (|v2c|, its sign, the sign xor, two min compares, the
+# exclusive pick, x factor, the sign applied); variable sum 1.  Plus 1 per
+# variable and iteration (channel LLR + the sum).
+OPS_PER_EDGE = 14
 
 
 def log(msg: str) -> None:
@@ -99,35 +114,24 @@ def compare(ref, got):
     return int(bad.sum()), max_err
 
 
-def cuda_ms(fn, reps: int, windows: int = 7) -> tuple[float, float, float]:
-    """(median, min, max) over ``windows`` windows of the milliseconds per
-    call of ``fn`` on the card, each window timed by CUDA events around
-    ``reps`` calls."""
-    per_call = []
-    for _ in range(windows):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        per_call.append(start.elapsed_time(end) / reps)
-    return float(np.median(per_call)), min(per_call), max(per_call)
-
-
-def device_us(fn, kernel: str, reps: int = 20) -> float | None:
-    """Device microseconds per launch of the CUDA kernel whose name holds
-    ``kernel``, from torch.profiler over ``reps`` calls of ``fn``; None when
-    the trace shows no such kernel."""
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages() if kernel in e.key]
-    count = sum(e.count for e in events)
-    return sum(e.device_time_total for e in events) / count if count else None
+def bound_us(dec, kernel: str, B: int, iterations: int) -> tuple[float, str]:
+    """(least microseconds, the side that binds) for one launch of ``kernel``
+    on B codewords of ``dec``'s code that need ``iterations`` codeword-
+    iterations in all: each input byte read once (LLRs, factors, the
+    kernel's tables) and each output byte written once (posteriors, info
+    bits, success, iterations), against the operations these iterations
+    need."""
+    n, m, k, D = dec.n, dec.m, dec.k, dec.D
+    io = B * (4 * n + 4) + B * (4 * n + k + 1 + 4)
+    if kernel == "K1":
+        tables = sum(t.numel() * t.element_size() for t in (dec.k1_row, dec.k1_epos, dec.k1_jobs))
+    else:
+        tables = (4 * m * D + m * D + dec.slot_ptr.numel() * 4 + dec.slot_chk.numel() * 4)
+    edges = int(dec.row_mask.sum())
+    ops = iterations * (OPS_PER_EDGE * edges + n)
+    t_bytes = (io + tables) / HBM_BYTES_PER_S * 1e6
+    t_ops = ops / F32_OPS_PER_S * 1e6
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def main() -> int:
@@ -153,6 +157,7 @@ def main() -> int:
     from ria_tpu_torch.fec.ldpc_matrix import CODE_PARAMS, MIN_SUM_FACTOR
     from ria_tpu_torch.phy.pipeline import make_rx_pipeline
     from ria_tpu_torch.tools import ldpc_bench
+    from ria_tpu_torch.utils.timing import cuda_ms, device_us
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -163,6 +168,16 @@ def main() -> int:
         for line in b.log.splitlines():
             if "registers" in line or "bytes stack" in line:
                 log(f"  ptxas: {line.strip()}")
+    k1_dec = ldpc_decoder(RATE, None, dev)
+    res = ldpc_kernel.k1_resources(k1_dec.n, k1_dec.k1.slots)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    resident = res["blocks_per_sm"] * sms
+    log(f"[2 build] K1 at {RATE}: {res['registers']} registers and {res['local_bytes']} "
+        f"bytes of local (spill) memory per thread, {res['shared_bytes']} shared bytes per "
+        f"block; {res['blocks_per_sm']} blocks per SM x {sms} SMs = {resident} codewords "
+        "resident at once")
+    if res["local_bytes"] or resident < 512:
+        raise AssertionError("K1 spills, or fewer than 512 codewords are resident at once")
 
     # -- 3. kernels vs plain, on the card -------------------------------------
     rng = np.random.default_rng(1234)
@@ -199,12 +214,13 @@ def main() -> int:
     ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
     out = rx(audio)
     torch.cuda.synchronize()
-    launches = ldpc_kernel.LAUNCHES
+    launches, launches_v1_main = ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_V1
     det = out.detected.cpu().numpy()
     ok = out.cw_success.cpu().numpy()
     bits = out.info_bits.cpu().numpy()
     log(f"[4 main path] B={batch} window={window}: detected {int(det.sum())}/{batch}, "
-        f"cw_decode_rate {ok.mean():.4f}, K1 launches {launches}")
+        f"cw_decode_rate {ok.mean():.4f}, K1 launches {launches}, K2 launches "
+        f"{launches_v1_main}")
     if out.info_bits.shape != (batch, ncw, info.shape[-1]):
         raise AssertionError(f"info_bits shape {tuple(out.info_bits.shape)}")
     if not torch.isfinite(out.snr_db).all() or not torch.isfinite(out.cfo_hz).all():
@@ -278,7 +294,7 @@ def main() -> int:
     got = L.decode_with_retries(llr, "R1_2", device=dev)
     torch.cuda.synchronize()
     retry_launches = ldpc_kernel.LAUNCHES - before
-    n_bad, err = compare(L.decode_with_retries(llr, "R1_2"), got)
+    n_bad, err = compare(L.decode_with_retries(llr, "R1_2", device="cpu"), got)
     log(f"[6 serving] decode_with_retries R1/2 B=4: success {int(got.success.sum())}/4, "
         f"K1 launches {retry_launches}, rows differing from the CPU port {n_bad}, "
         f"max |llr err| {err:.3g}")
@@ -286,7 +302,7 @@ def main() -> int:
         raise AssertionError("decode_with_retries on the card")
     llr = bpsk_llrs("R1_4", 6, 4, 10 ** (-1.0 / 20))
     got = L.decode_candidates(llr, "R1_4", device=dev)
-    want = L.decode_candidates(llr, "R1_4")
+    want = L.decode_candidates(llr, "R1_4", device="cpu")
     same = [len(c) for c in got] == [len(c) for c in want] and all(
         np.array_equal(bits, w_bits) and abs(m - w_m) <= LLR_ATOL
         for cands, w_cands in zip(got, want)
@@ -309,6 +325,17 @@ def main() -> int:
     _, _, soft = rx.soft_bits(audio)
     dec = ldpc_decoder(RATE, None, dev)
     k2_dec = make_cuda_decoder_v1(RATE, device=dev)
+    # K1's host cost per call: wall clock over 1,000 calls with no synchronise
+    # (before any profiler run, which slows launches).
+    f = torch.full((soft.shape[0],), MIN_SUM_FACTOR, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        dec(soft, f)
+    host_us = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    log(f"[7 timing] K1 host time per call at B={soft.shape[0]}: {host_us:.2f} us "
+        "(wall clock over 1,000 calls, no synchronise)")
     times = {}
     for label, x in (("B=256 main path", soft),
                      ("B=512 mixed", torch.as_tensor(llr_batch(RATE, 512, rng, True)[0],
@@ -333,29 +360,54 @@ def main() -> int:
         q2 = cuda_ms(fns["plain_v1"], 5)[0]
         us = {name: device_us(fns[name], kernel)
               for name, kernel in (("K1", "ldpc_bp_kernel"), ("K2", "ldpc_bp_v1_kernel"))}
-        times[label] = {"K1": ((k1a + k1b) / 2, (p1 + p2) / 2),
-                        "K2": ((k2a + k2b) / 2, (q1 + q2) / 2)}
+        iterations = dec(x, f).iterations
+        bounds = {name: bound_us(dec, name, x.shape[0], int(iterations.sum())) for name in us}
+        times[label] = {"K1": ((k1a + k1b) / 2, (p1 + p2) / 2, us["K1"], bounds["K1"]),
+                        "K2": ((k2a + k2b) / 2, (q1 + q2) / 2, us["K2"], bounds["K2"])}
         log(f"[7 timing] LDPC {RATE} {label}: mean iterations "
-            f"{dec(x, f).iterations.float().mean():.2f}; K1 {k1a:.4f} / {k1b:.4f} / {k1c:.4f} ms, "
+            f"{iterations.float().mean():.2f}; K1 {k1a:.4f} / {k1b:.4f} / {k1c:.4f} ms, "
             f"plain {p1:.4f} / {p2:.4f} ms; K2 {k2a:.4f} / {k2b:.4f} ms, plain_v1 {q1:.4f} / "
             f"{q2:.4f} ms")
         log(f"[7 timing] LDPC {RATE} {label}: device time per launch (torch.profiler, 20 "
             "launches): " + ", ".join(
                 f"{name} " + ("not measured" if t is None else f"{t:.2f} us")
                 for name, t in us.items()))
+        if None in us.values():
+            raise AssertionError("the profiler showed no device time for K1 or K2")
+        log(f"[7 timing] LDPC {RATE} {label}: K1/K2 device time {us['K1'] / us['K2']:.4f}; "
+            + ", ".join(f"{name} bound {bounds[name][0]:.3f} us ({bounds[name][1]}), "
+                        f"{bounds[name][0] / us[name]:.2%} of it reached"
+                        for name in us) + f" ({card})")
+
+    # The serial floor: one codeword alone for all 50 iterations.
+    ab_k1 = dec(ab_llr, ab_fac)
+    row = int(torch.nonzero((ab_k1.iterations == 50) & ~ab_k1.success)[0])
+    x1, f1 = ab_llr[row : row + 1], ab_fac[:1]
+    floor = {"K1": device_us(lambda: dec(x1, f1), "ldpc_bp_kernel"),
+             "K2": device_us(lambda: k2_dec(x1, f1), "ldpc_bp_v1_kernel")}
+    log("[7 timing] serial floor, B=1 on A/B row {} (50 iterations): ".format(row) + ", ".join(
+        f"{name} {t:.2f} us per launch, {t / 50:.4f} us per iteration"
+        for name, t in floor.items()) + f" ({card})")
 
     # -- 8. result ------------------------------------------------------------
+    # Times at the main path's 256 codewords.  ``launches`` counts the path
+    # that runs each kernel (K1: the RX call; K2: the A/B entry point),
+    # ``launches_per_call`` the launches per RX call of the main path.  No
+    # PyTorch call computes min-sum BP, so there is no library time.
     main_times = times["B=256 main path"]
-    kernels = [
-        {"name": "ldpc_bp", "route": "cuda", "source": "ria_tpu_torch/csrc/ldpc_bp.cu",
-         "replaces": "ria_tpu/fec/ldpc_pallas.py:39", "launches": launches,
-         "max_abs_err": max_err["K1"], "ms": main_times["K1"][0],
-         "plain_ms": main_times["K1"][1]},
-        {"name": "ldpc_bp_v1", "route": "cuda", "source": "ria_tpu_torch/csrc/ldpc_bp_v1.cu",
-         "replaces": "ria_tpu/fec/ldpc_pallas.py:218", "launches": launches_v1,
-         "max_abs_err": max_err["K2"], "ms": main_times["K2"][0],
-         "plain_ms": main_times["K2"][1]},
-    ]
+    kernels = []
+    for name, source, replaces, n_launch, per_call in (
+            ("K1", "ria_tpu_torch/csrc/ldpc_bp.cu", "ria_tpu/fec/ldpc_pallas.py:39",
+             launches, launches),
+            ("K2", "ria_tpu_torch/csrc/ldpc_bp_v1.cu", "ria_tpu/fec/ldpc_pallas.py:218",
+             launches_v1, launches_v1_main)):
+        ms, plain_ms, dev_us, (b_us, b_by) = main_times[name]
+        kernels.append({
+            "name": "ldpc_bp" if name == "K1" else "ldpc_bp_v1", "route": "cuda",
+            "source": source, "replaces": replaces, "launches": n_launch,
+            "launches_per_call": per_call, "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "device_us": dev_us, "bound_us": b_us,
+            "bound_ms": b_us / 1e3, "bound_by": b_by, "library_ms": None})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

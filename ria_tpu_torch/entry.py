@@ -43,7 +43,7 @@ def geometry(production: bool = False) -> tuple[MCDPSKConfig, int, int, int]:
 
 def _make_batch(cfg: MCDPSKConfig, num_codewords: int, batch: int, window: int,
                 seed: int = 0, production: bool = False,
-                device: str | torch.device = "cpu") -> tuple[torch.Tensor, np.ndarray]:
+                device: str | torch.device = "cuda") -> tuple[torch.Tensor, np.ndarray]:
     """TX a batch of frames (encoded random R1/4 codewords) into audio windows.
 
     Returns (audio [batch, window] f32 on ``device``, info bits
@@ -73,8 +73,9 @@ def _make_batch(cfg: MCDPSKConfig, num_codewords: int, batch: int, window: int,
     return audio, info.reshape(batch, num_codewords, k)
 
 
-def entry(production: bool = False, device: str | torch.device = "cpu"):
-    """(rx, (audio,)): the RX chain and a batch for it, on ``device``."""
+def entry(production: bool = False, device: str | torch.device = "cuda"):
+    """(rx, (audio,)): the RX chain and a batch for it, on ``device`` (the
+    card by default; ``device="cpu"`` for the host)."""
     cfg, ncw, batch, window = geometry(production)
     rx = make_rx_pipeline(cfg, RATE, ncw, window, device=device)
     audio, _ = _make_batch(cfg, ncw, batch, window, production=production, device=device)

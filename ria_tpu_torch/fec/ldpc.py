@@ -18,7 +18,9 @@ candidate probes and ``LDPCCodec``).  Three decoders compute the same thing:
   ``make_pallas_decoder_v1``.  Only the tests and ``chip_smoke.py`` call it.
 
 :class:`LDPCDecoder` launches K1 for a CUDA tensor and uses the plain decoder
-only for a CPU tensor; there is no fallback from one to the other.
+only for a CPU tensor; there is no fallback from one to the other.  Every
+entry point here runs on the card unless it is given ``device="cpu"``;
+without a card, the default raises instead of running on the host.
 
 Numeric contract (as the reference): normalized min-sum with a per-row
 factor, message clamp +/-50, hard-decision parity check after every
@@ -57,24 +59,28 @@ class DecodeResult(NamedTuple):
 class LDPCDecoder(nn.Module):
     """Batched decoder for one code: (llrs [B, n], factors [B]) -> DecodeResult.
 
-    The code's tables are buffers: ``gather`` (one-hot [m*D, n], plain
-    decoders), ``row_idx``/``row_mask`` ([m, D]), the variable->edge CSC
-    lists ``col_ptr``/``col_edge`` (K1) and the per-slot variable->check
-    lists ``slot_ptr``/``slot_chk`` (K2).
+    The code's tables are buffers, built once here: ``gather`` (one-hot
+    [m*D, n], plain decoders), ``row_idx``/``row_mask`` ([m, D]), K1's
+    ``k1_row``/``k1_epos``/``k1_jobs`` (:func:`ldpc_kernel.k1_layout`,
+    checked once into ``self.k1``) and the per-slot variable->check lists
+    ``slot_ptr``/``slot_chk`` (K2).
     """
 
     def __init__(self, code: LDPCCode, max_iters: int | None = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         super().__init__()
         dev = resolve_device(device)
         self.k, self.m, self.n, self.D = code.k, code.m, code.n, code.max_degree
         self.max_iters = RECOMMENDED_ITERS[code.rate] if max_iters is None else max_iters
-        col_ptr, col_edge = ldpc_kernel.csc_tables(code.row_idx, code.row_mask, code.n)
         self.register_buffer("gather", torch.as_tensor(code.gather, device=dev))
         self.register_buffer("row_idx", torch.as_tensor(code.row_idx, device=dev))
         self.register_buffer("row_mask", torch.as_tensor(code.row_mask, device=dev))
-        self.register_buffer("col_ptr", torch.as_tensor(col_ptr, device=dev))
-        self.register_buffer("col_edge", torch.as_tensor(col_edge, device=dev))
+        layout = ldpc_kernel.k1_layout(code.row_idx, code.row_mask, code.n)
+        self.register_buffer("k1_row", torch.as_tensor(layout.row, device=dev))
+        self.register_buffer("k1_epos", torch.as_tensor(layout.epos, device=dev))
+        self.register_buffer("k1_jobs", torch.as_tensor(layout.jobs, device=dev))
+        self.k1 = ldpc_kernel.k1_tables(layout, self.k1_row, self.k1_epos, self.k1_jobs,
+                                        code.n)
         slot_ptr, slot_chk = ldpc_kernel.slot_tables(code.row_idx, code.row_mask, code.n)
         self.register_buffer("slot_ptr", torch.as_tensor(slot_ptr, device=dev))
         self.register_buffer("slot_chk", torch.as_tensor(slot_chk, device=dev))
@@ -82,8 +88,7 @@ class LDPCDecoder(nn.Module):
     def forward(self, llrs: torch.Tensor, factors: torch.Tensor) -> DecodeResult:
         if llrs.device.type == "cuda":
             return DecodeResult(*ldpc_kernel.bp_decode(
-                llrs.float().contiguous(), factors.float().contiguous(),
-                self.row_idx, self.row_mask, self.col_ptr, self.col_edge,
+                llrs.float().contiguous(), factors.float().contiguous(), self.k1,
                 self.k, self.max_iters))
         if llrs.device.type == "cpu":
             return self.plain(llrs, factors)
@@ -199,13 +204,13 @@ class LDPCDecoder(nn.Module):
 
 @functools.lru_cache(maxsize=None)
 def ldpc_decoder(rate: str, max_iters: int | None = None,
-                 device: str | torch.device = "cpu") -> LDPCDecoder:
+                 device: str | torch.device = "cuda") -> LDPCDecoder:
     """Cached :class:`LDPCDecoder` for a rate on a device."""
     return LDPCDecoder(get_code(rate), max_iters, device)
 
 
 def make_decoder_vf(rate: str, max_iters: int | None = None,
-                    device: str | torch.device = "cpu"):
+                    device: str | torch.device = "cuda"):
     """The plain PyTorch decoder with per-row factors:
     (llrs [B, 648], factors [B]) -> DecodeResult, on any device.  The
     yardstick K1 is held against; nothing on the main path calls it when a
@@ -215,7 +220,7 @@ def make_decoder_vf(rate: str, max_iters: int | None = None,
 
 def make_decoder(rate: str, max_iters: int | None = None,
                  min_sum_factor: float = MIN_SUM_FACTOR,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
     """Fixed-factor decoder llrs [B, 648] -> DecodeResult: K1 for CUDA
     tensors, the plain decoder for CPU tensors."""
     dec = ldpc_decoder(rate, max_iters, device)
@@ -231,7 +236,8 @@ def make_decoder(rate: str, max_iters: int | None = None,
 def _on_device(x, device: str | torch.device | None) -> torch.Tensor:
     """``x`` as an f32 tensor: a tensor keeps its device (and raises if
     ``device`` names another), anything else goes to ``device`` (default
-    the CPU).  Work never moves between devices on its own."""
+    the card; without one that raises).  Work never moves between devices
+    on its own."""
     if isinstance(x, torch.Tensor):
         want = None if device is None else resolve_device(device)
         if want is not None and (x.device.type != want.type or
@@ -239,7 +245,7 @@ def _on_device(x, device: str | torch.device | None) -> torch.Tensor:
             raise ValueError(f"tensor on {x.device}, but device={device} was asked for")
         return x.float()
     return torch.as_tensor(np.asarray(x, np.float32),
-                           device=resolve_device("cpu" if device is None else device))
+                           device=resolve_device("cuda" if device is None else device))
 
 
 def decode_batch(llrs, factors, rate: str, max_iters: int | None = None,
@@ -249,7 +255,8 @@ def decode_batch(llrs, factors, rate: str, max_iters: int | None = None,
     K1 for CUDA (no padding: the kernel exits per codeword), the plain
     decoder for the CPU -- the port of the backend gate of
     ``ria_tpu.fec.ldpc.decode_batch``.  A tensor keeps its device; a numpy
-    array goes to ``device`` (default the CPU).
+    array goes to ``device`` (default ``cuda``; pass ``device="cpu"`` for
+    the plain decoder on the host).
     """
     llrs = _on_device(llrs, device)
     factors = torch.as_tensor(factors, dtype=torch.float32, device=llrs.device)
@@ -258,7 +265,7 @@ def decode_batch(llrs, factors, rate: str, max_iters: int | None = None,
 
 def make_tile_decoder(rate: str, max_iters: int | None = None,
                       min_sum_factor: float = MIN_SUM_FACTOR,
-                      device: str | torch.device = "cpu"):
+                      device: str | torch.device = "cuda"):
     """(decoder_fn, pad_to) for the sharded/replicated RX paths: K1 on CUDA,
     the plain decoder on the CPU.  ``pad_to`` is always None: K1 exits per
     codeword and needs no tile padding, so the reference's
@@ -266,7 +273,7 @@ def make_tile_decoder(rate: str, max_iters: int | None = None,
     return make_decoder(rate, max_iters, min_sum_factor, device), None
 
 
-def make_encoder(rate: str, device: str | torch.device = "cpu"):
+def make_encoder(rate: str, device: str | torch.device = "cuda"):
     """Batched systematic encoder: info_bits [B, k] -> codeword [B, 648] uint8."""
     h_data_t = torch.as_tensor(np.ascontiguousarray(get_code(rate).h_data.T),
                                device=resolve_device(device))
@@ -299,7 +306,7 @@ def decode_chunked(llrs, rate: str, chunk: int = 512, max_iters: int | None = No
 
 def decode_with_retries(llrs, rate: str, max_iters: int | None = None,
                         base_factor: float = 0.9375,
-                        device: str | torch.device = "cpu") -> DecodeResult:
+                        device: str | torch.device = "cuda") -> DecodeResult:
     """Decode with the fixed-frame retry ladder in at most 2 decode dispatches.
 
     Port of ``ria_tpu.fec.ldpc.decode_with_retries``: the primary batch at
@@ -383,7 +390,7 @@ def candidate_plan(num_failed: int) -> list[tuple[str, float]]:
 
 def decode_candidates(llrs, rate: str, max_iters: int | None = None,
                       max_per_cw: int = 4, num_failed: int = 4,
-                      device: str | torch.device = "cpu"):
+                      device: str | torch.device = "cuda"):
     """CRC-aided list decoding support: distinct candidate codewords per CW.
 
     Port of ``ria_tpu.fec.ldpc.decode_candidates``: one batched decode of
@@ -448,7 +455,7 @@ class LDPCCodec:
     """
 
     def __init__(self, rate: str, max_iters: int | None = None,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.rate = rate
         self.code = get_code(rate)
         self.max_iters = max_iters or RECOMMENDED_ITERS[rate]

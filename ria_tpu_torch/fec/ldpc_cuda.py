@@ -45,9 +45,7 @@ def make_cuda_decoder(rate: str, max_iters: int | None = None,
 
     def decode(llrs: torch.Tensor, factors: torch.Tensor | None = None) -> DecodeResult:
         x, f = _args(llrs, factors, min_sum_factor)
-        return DecodeResult(*ldpc_kernel.bp_decode(
-            x, f, dec.row_idx, dec.row_mask, dec.col_ptr, dec.col_edge, dec.k,
-            dec.max_iters))
+        return DecodeResult(*ldpc_kernel.bp_decode(x, f, dec.k1, dec.k, dec.max_iters))
 
     return decode
 

@@ -39,6 +39,8 @@ import torch
 LAUNCHES = 0
 LAUNCHES_V1 = 0
 
+K1_THREADS = 512  # threads per K1 block: kThreads in csrc/ldpc_bp.cu
+
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCE = _CSRC / "ldpc_bp.cu"
 _SOURCE_V1 = _CSRC / "ldpc_bp_v1.cu"
@@ -49,7 +51,7 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 def csc_tables(row_idx: np.ndarray, row_mask: np.ndarray,
                n: int) -> tuple[np.ndarray, np.ndarray]:
-    """Variable->edge lists in CSC form for the kernel's scatter.
+    """Variable->edge lists in CSC form.
 
     Returns ``col_ptr [n + 1]`` and ``col_edge [E]`` (int32): the edge slots
     ``e = check * D + d`` of variable ``v`` are
@@ -63,6 +65,138 @@ def csc_tables(row_idx: np.ndarray, row_mask: np.ndarray,
     col_ptr = np.zeros(n + 1, np.int32)
     col_ptr[1:] = np.cumsum(np.bincount(var, minlength=n))
     return col_ptr, col_edge
+
+
+def edge_positions(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> np.ndarray:
+    """``edge_pos [m, D]`` int32: the position of edge ``(c, d)`` in
+    :func:`csc_tables`' ``col_edge`` (its inverse), -1 on a masked slot."""
+    m, D = np.asarray(row_idx).shape
+    col_edge = csc_tables(row_idx, row_mask, n)[1]
+    pos = np.full(m * D, -1, np.int32)
+    pos[col_edge] = np.arange(len(col_edge), dtype=np.int32)
+    return pos.reshape(m, D)
+
+
+class K1Layout(NamedTuple):
+    """K1's host-built tables for one code (numpy), see :func:`k1_layout`."""
+    row: np.ndarray    # [D, m] int16: variable on slot d of thread c's check; n if none
+    epos: np.ndarray   # [D, m] int16: that edge's slot in the message array; slots if none
+    jobs: np.ndarray   # [2, K1_THREADS] int32: packed variable jobs of each thread; -1 none
+    slots: int         # length of the message array (a multiple of 4)
+    stride: int        # cells between a job's consecutive 4-slot cells
+
+
+def unpack_job(job: int) -> tuple[int, int, int]:
+    """(variable, first 4-slot cell, cell count) of a packed K1 job; cell q
+    of the job is cell ``first + q * stride`` of the message array."""
+    return job & 1023, (job >> 15) & 8191, (job >> 10) & 31
+
+
+def k1_layout(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> K1Layout:
+    """K1's tables: messages in a padded, cell-interleaved CSC order, a
+    balanced variable pass, and each check's edges spread over the D slots
+    to keep shared-memory bank conflicts low.
+
+    Variables are dealt to the K1_THREADS threads by descending degree; the
+    ``n - K1_THREADS`` lightest go, as second jobs, to the threads whose
+    first job is lightest, so a thread's chain of shared loads per iteration
+    (one per 4-slot cell) stays below the heaviest variable's degree (4
+    loads for 13 edges at R1_4).  A variable's messages, in ascending edge
+    order (the order of :func:`csc_tables`), fill 4-slot cells, the last
+    one padded with zero slots; a variable of 1 to 3 edges starts at lane
+    ``(first // 8) % 4`` of its cell, as far as the cell holds it, so that
+    neighbouring cells' messages sit on different banks (the zero lanes
+    before it leave its sum as it is).  The ``stride`` threads whose first
+    job spans several cells come first; cell q of thread t's first job is
+    cell ``q * stride + t``; the one-cell jobs follow, one cell per thread
+    in thread order.  So the threads of a warp load neighbouring cells and
+    the kernel sums a variable with 128-bit loads that do not conflict.  A
+    job packs ``v | cells << 10 | first << 15``.
+
+    Each check's edges may sit on any of its D slots (the min-sum update
+    does not depend on their order): they are placed greedily so that the
+    32 checks of a warp gather ``post[v]`` and store to ``epos`` on as
+    few addresses per shared-memory bank as the code allows.  A slot with
+    no edge holds the sentinel variable ``n`` and message slot ``slots``,
+    which the kernel keeps at +inf and never sums.
+    """
+    row_idx, row_mask = np.asarray(row_idx), np.asarray(row_mask)
+    m, D = row_idx.shape
+    T = K1_THREADS
+    if n > 1023 or m > T:  # a job packs v in 10 bits; one thread per check
+        raise ValueError(f"K1 takes n <= 1023 variables and m <= {T} checks")
+    col_ptr, _ = csc_tables(row_idx, row_mask, n)
+    deg = np.diff(col_ptr)
+    order = np.argsort(-deg, kind="stable")
+    job_of = np.zeros((n, 2), np.int64)  # (job row, thread) of each variable
+    job_of[order[:T], 0], job_of[order[:T], 1] = 0, np.arange(min(n, T))
+    rest = order[T:]
+    job_of[rest, 0], job_of[rest, 1] = 1, T - 1 - np.arange(len(rest))
+    cells = (deg + 3) // 4
+    multi = (job_of[:, 0] == 0) & (cells > 1)
+    stride = int(multi.sum())
+    if np.any(cells[job_of[:, 0] == 1] > 1) or np.any(job_of[multi, 1] >= stride):
+        raise ValueError("K1's layout needs the multi-cell variables first")
+    single = ~multi & (cells > 0)
+    # One-cell jobs after the multi-cell block, in (job row, thread) order.
+    key = job_of[:, 0] * T + job_of[:, 1]
+    rank = np.argsort(np.argsort(np.where(single, key, 2 * T)))
+    top = stride * cells[multi].max(initial=0)
+    first = np.where(multi, job_of[:, 1], top + rank)
+    first = np.where(cells > 0, first, 0)
+    lead = np.where((deg > 0) & (deg < 4), (first // 8) % 4 % (5 - np.minimum(deg, 4)), 0)
+    n_cells = top + int(single.sum())
+    slots = 4 * n_cells
+    if cells.max(initial=0) > 31 or slots > 16380:  # byte offsets of slots fit 16 bits
+        raise ValueError(f"K1's message array of {slots} slots is too long")
+    jobs = np.full((2, T), -1, np.int64)
+    jobs[job_of[:, 0], job_of[:, 1]] = np.arange(n) | (cells << 10) | (first << 15)
+
+    e_rank = edge_positions(row_idx, row_mask, n) - col_ptr[np.where(row_mask, row_idx, 0)]
+    e_rank = e_rank + lead[row_idx]
+    edge_slot = 4 * (first[row_idx] + (e_rank // 4) * stride) + e_rank % 4
+    row = np.full((D, m), n, np.int64)
+    epos = np.full((D, m), slots, np.int64)
+    taken = {}  # (warp, slot, bank, gather or store) -> addresses
+    for c in range(m):
+        free = list(range(D))
+        for d in np.flatnonzero(row_mask[c]):
+            v, e = int(row_idx[c, d]), int(edge_slot[c, d])
+
+            def cost(s, v=v, e=e):
+                g = taken.get((c // 32, s, v % 32, 0), set())
+                st = taken.get((c // 32, s, e % 32, 1), set())
+                return len(g - {v}) + len(st), s
+
+            s = min(free, key=cost)
+            free.remove(s)
+            taken.setdefault((c // 32, s, v % 32, 0), set()).add(v)
+            taken.setdefault((c // 32, s, e % 32, 1), set()).add(e)
+            row[s, c], epos[s, c] = v, e
+    return K1Layout(row.astype(np.int16), epos.astype(np.int16), jobs.astype(np.int32),
+                    slots, stride)
+
+
+class K1Tables(NamedTuple):
+    """K1's tables on one device, checked once by :func:`k1_tables`."""
+    row: torch.Tensor
+    epos: torch.Tensor
+    jobs: torch.Tensor
+    slots: int
+    stride: int
+    n: int
+
+
+def k1_tables(layout: K1Layout, row: torch.Tensor, epos: torch.Tensor,
+              jobs: torch.Tensor, n: int) -> K1Tables:
+    """Check the device copies of a :class:`K1Layout` once, so that
+    :func:`bp_decode` need not on every call."""
+    D, m = layout.row.shape
+    dev = row.device
+    _check(row, "row", torch.int16, (D, m), dev)
+    _check(epos, "epos", torch.int16, (D, m), dev)
+    _check(jobs, "jobs", torch.int32, (2, K1_THREADS), dev)
+    return K1Tables(row, epos, jobs, layout.slots, layout.stride, n)
 
 
 def slot_tables(row_idx: np.ndarray, row_mask: np.ndarray,
@@ -140,12 +274,36 @@ def build() -> dict[str, Build]:
     return results
 
 
+# Pointer and int arguments of each C entry point (then the stream).
+_ARGS = {"ldpc_bp": (9, 8), "ldpc_bp_v1": (10, 6)}
+
+
+@functools.cache
+def _library(name: str) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build()[name].path))
+
+
 @functools.cache
 def _entry(name: str):
-    fn = getattr(ctypes.CDLL(str(build()[name].path)), f"ria_{name}_decode")
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+    fn = getattr(_library(name), f"ria_{name}_decode")
+    ptrs, ints = _ARGS[name]
+    fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def k1_resources(n: int, slots: int) -> dict[str, int]:
+    """What the built K1 uses on the current card: registers and local
+    (spill) bytes per thread, shared bytes per block and blocks resident per
+    SM, from the CUDA runtime."""
+    fn = _library("ldpc_bp").ria_ldpc_bp_resources
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 4)()
+    err = fn(n, slots, ctypes.addressof(out))
+    if err != 0:
+        raise RuntimeError(f"ria_ldpc_bp_resources failed: CUDA error {err}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -160,23 +318,29 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
         raise ValueError(f"{name} is not contiguous")
 
 
-def bp_decode(llrs: torch.Tensor, factors: torch.Tensor, row_idx: torch.Tensor,
-              row_mask: torch.Tensor, col_ptr: torch.Tensor, col_edge: torch.Tensor,
+def bp_decode(llrs: torch.Tensor, factors: torch.Tensor, tables: K1Tables,
               k: int, max_iters: int):
     """Launch K1 on CUDA tensors: (info_bits, success, iterations, llr_total).
 
-    llrs [B, n] f32, factors [B] f32; row_idx [m, D] int32, row_mask [m, D]
-    bool, col_ptr [n + 1] and col_edge [E] int32 (:func:`csc_tables`), all on
-    one CUDA device and contiguous.  Outputs: info_bits [B, k] uint8,
+    llrs [B, n] f32 and factors [B] f32, contiguous, on the device of
+    ``tables`` (:func:`k1_tables`).  Outputs: info_bits [B, k] uint8,
     success [B] bool, iterations [B] int32, llr_total [B, n] f32.
     """
     global LAUNCHES
-    _check_inputs("K1", llrs, factors, row_idx, row_mask)
-    _check(col_ptr, "col_ptr", torch.int32, (llrs.shape[1] + 1,), llrs.device)
-    _check(col_edge, "col_edge", torch.int32, (col_edge.shape[0],), llrs.device)
-    out = _launch("ldpc_bp", llrs, factors, row_idx, row_mask, col_ptr, col_edge,
-                  k, max_iters)
-    if llrs.shape[0]:  # an empty batch launches nothing
+    if llrs.device.type != "cuda":
+        raise ValueError(f"K1 takes CUDA tensors, got {llrs.device}")
+    dev = tables.row.device
+    _check(llrs, "llrs", torch.float32, (llrs.shape[0], tables.n), dev)
+    _check(factors, "factors", torch.float32, (llrs.shape[0],), dev)
+    if llrs.data_ptr() % 16:  # the kernel copies each row with one bulk copy
+        llrs = llrs.clone()
+    B, n = llrs.shape
+    D, m = tables.row.shape
+    out = _outputs(llrs, k)
+    if B:  # an empty batch launches nothing
+        _run("ldpc_bp", llrs.data_ptr(), factors.data_ptr(), tables.row.data_ptr(),
+             tables.epos.data_ptr(), tables.jobs.data_ptr(), *_out_ptrs(out),
+             B, n, m, k, D, tables.slots, tables.stride, max_iters, dev=dev)
         LAUNCHES += 1
     return out
 
@@ -186,25 +350,13 @@ def bp_decode_v1(llrs: torch.Tensor, factors: torch.Tensor, row_idx: torch.Tenso
                  k: int, max_iters: int):
     """Launch K2 on CUDA tensors: (info_bits, success, iterations, llr_total).
 
-    As :func:`bp_decode`, with the per-slot lists ``slot_ptr [D, n + 1]`` and
-    ``slot_chk [E]`` (int32, :func:`slot_tables`) in place of the CSC lists.
+    llrs [B, n] f32, factors [B] f32; row_idx [m, D] int32, row_mask [m, D]
+    bool, the per-slot lists ``slot_ptr [D, n + 1]`` and ``slot_chk [E]``
+    (int32, :func:`slot_tables`), all on one CUDA device and contiguous.
     """
     global LAUNCHES_V1
-    _check_inputs("K2", llrs, factors, row_idx, row_mask)
-    D, n = row_idx.shape[1], llrs.shape[1]
-    _check(slot_ptr, "slot_ptr", torch.int32, (D, n + 1), llrs.device)
-    _check(slot_chk, "slot_chk", torch.int32, (slot_chk.shape[0],), llrs.device)
-    out = _launch("ldpc_bp_v1", llrs, factors, row_idx, row_mask, slot_ptr, slot_chk,
-                  k, max_iters)
-    if llrs.shape[0]:
-        LAUNCHES_V1 += 1
-    return out
-
-
-def _check_inputs(kernel: str, llrs: torch.Tensor, factors: torch.Tensor,
-                  row_idx: torch.Tensor, row_mask: torch.Tensor) -> None:
     if llrs.device.type != "cuda":
-        raise ValueError(f"{kernel} takes CUDA tensors, got {llrs.device}")
+        raise ValueError(f"K2 takes CUDA tensors, got {llrs.device}")
     if llrs.dim() != 2:
         raise ValueError(f"llrs must be [B, n], got {tuple(llrs.shape)}")
     dev = llrs.device
@@ -214,29 +366,42 @@ def _check_inputs(kernel: str, llrs: torch.Tensor, factors: torch.Tensor,
     _check(factors, "factors", torch.float32, (B,), dev)
     _check(row_idx, "row_idx", torch.int32, (m, D), dev)
     _check(row_mask, "row_mask", torch.bool, (m, D), dev)
+    _check(slot_ptr, "slot_ptr", torch.int32, (D, n + 1), dev)
+    _check(slot_chk, "slot_chk", torch.int32, (slot_chk.shape[0],), dev)
+    out = _outputs(llrs, k)
+    if B:
+        _run("ldpc_bp_v1", llrs.data_ptr(), factors.data_ptr(), row_idx.data_ptr(),
+             row_mask.data_ptr(), slot_ptr.data_ptr(), slot_chk.data_ptr(),
+             *_out_ptrs(out), B, n, m, k, D, max_iters, dev=dev)
+        LAUNCHES_V1 += 1
+    return out
 
 
-def _launch(name: str, llrs: torch.Tensor, factors: torch.Tensor, row_idx: torch.Tensor,
-            row_mask: torch.Tensor, var_ptr: torch.Tensor, var_list: torch.Tensor,
-            k: int, max_iters: int):
-    """Allocate the outputs and launch kernel ``name`` on the current stream
-    (nothing for an empty batch); raises when the launch is refused."""
+def _outputs(llrs: torch.Tensor, k: int):
+    """Empty (info_bits, success, iterations, llr_total) for a batch."""
     dev = llrs.device
-    B, n = llrs.shape
-    m, D = row_idx.shape
-    llr_total = torch.empty_like(llrs)
-    info = torch.empty((B, k), dtype=torch.uint8, device=dev)
-    success = torch.empty(B, dtype=torch.bool, device=dev)
-    iters = torch.empty(B, dtype=torch.int32, device=dev)
-    if B == 0:
-        return info, success, iters, llr_total
-    fn = _entry(name)
+    B = llrs.shape[0]
+    return (torch.empty((B, k), dtype=torch.uint8, device=dev),
+            torch.empty(B, dtype=torch.bool, device=dev),
+            torch.empty(B, dtype=torch.int32, device=dev),
+            torch.empty_like(llrs))
+
+
+def _out_ptrs(out) -> tuple[int, int, int, int]:
+    """The outputs' pointers in the C entry points' order: llr_total,
+    info_bits, success, iterations."""
+    info, success, iters, llr_total = out
+    return llr_total.data_ptr(), info.data_ptr(), success.data_ptr(), iters.data_ptr()
+
+
+def _run(name: str, *args, dev: torch.device) -> None:
+    """Call kernel ``name``'s C entry point on the current stream of ``dev``;
+    raises when the launch is refused."""
     stream = torch.cuda.current_stream(dev).cuda_stream
-    with torch.cuda.device(dev):
-        err = fn(llrs.data_ptr(), factors.data_ptr(), row_idx.data_ptr(),
-                 row_mask.data_ptr(), var_ptr.data_ptr(), var_list.data_ptr(),
-                 llr_total.data_ptr(), info.data_ptr(), success.data_ptr(),
-                 iters.data_ptr(), B, n, m, k, D, max_iters, stream)
+    if dev.index == torch.cuda.current_device():
+        err = _entry(name)(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = _entry(name)(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    return info, success, iters, llr_total

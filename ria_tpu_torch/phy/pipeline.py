@@ -57,7 +57,7 @@ class RxPipeline(nn.Module):
 
     def __init__(self, cfg: MCDPSKConfig, rate: str, num_codewords: int,
                  window_samples: int, min_sum_factor: float = 0.75,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         super().__init__()
         dev = resolve_device(device)
         _full_fp32_matmul()
@@ -104,8 +104,9 @@ class RxPipeline(nn.Module):
 
 def make_rx_pipeline(cfg: MCDPSKConfig, rate: str, num_codewords: int,
                      window_samples: int, min_sum_factor: float = 0.75,
-                     device: str | torch.device = "cpu") -> RxPipeline:
-    """Batch RX on ``device``: audio [B, window_samples] -> RxBatchResult."""
+                     device: str | torch.device = "cuda") -> RxPipeline:
+    """Batch RX on ``device`` (the card by default; ``device="cpu"`` for the
+    host): audio [B, window_samples] -> RxBatchResult."""
     return RxPipeline(cfg, rate, num_codewords, window_samples, min_sum_factor, device)
 
 
@@ -114,7 +115,7 @@ class TxPipeline(nn.Module):
     modulate() + preamble().  Buffers: synthesis bank, chirp, training."""
 
     def __init__(self, cfg: MCDPSKConfig, num_codewords: int,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         super().__init__()
         dev = resolve_device(device)
         _full_fp32_matmul()
@@ -152,6 +153,7 @@ class TxPipeline(nn.Module):
 
 
 def make_tx_pipeline(cfg: MCDPSKConfig, num_codewords: int,
-                     device: str | torch.device = "cpu") -> TxPipeline:
-    """Batch TX on ``device``: coded bits [B, NCW*648] -> audio [B, samples]."""
+                     device: str | torch.device = "cuda") -> TxPipeline:
+    """Batch TX on ``device`` (the card by default): coded bits [B, NCW*648]
+    -> audio [B, samples]."""
     return TxPipeline(cfg, num_codewords, device)

@@ -199,7 +199,7 @@ class ChirpDetector(nn.Module):
     (zoom branch)."""
 
     def __init__(self, cfg: ChirpConfig, num_samples: int,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         super().__init__()
         dev = resolve_device(device)
         self.cfg = cfg

@@ -1,0 +1,37 @@
+"""Timing on the card: CUDA events around calls, device time from torch.profiler."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def cuda_ms(fn, reps: int, windows: int = 7) -> tuple[float, float, float]:
+    """(median, min, max) over ``windows`` windows of the milliseconds per
+    call of ``fn`` on the card, each window timed by CUDA events around
+    ``reps`` calls."""
+    per_call = []
+    for _ in range(windows):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        per_call.append(start.elapsed_time(end) / reps)
+    return float(np.median(per_call)), min(per_call), max(per_call)
+
+
+def device_us(fn, kernel: str, reps: int = 20) -> float | None:
+    """Device microseconds per launch of the CUDA kernel whose name holds
+    ``kernel``, from torch.profiler over ``reps`` calls of ``fn``; None when
+    the trace shows no such kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if kernel in e.key]
+    count = sum(e.count for e in events)
+    return sum(e.device_time_total for e in events) / count if count else None

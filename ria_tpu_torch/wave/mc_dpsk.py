@@ -152,7 +152,7 @@ class MCDPSKDemodulator(nn.Module):
     """
 
     def __init__(self, cfg: MCDPSKConfig, num_data_symbols: int,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         super().__init__()
         self.cfg = cfg
         self.num_data_symbols = num_data_symbols

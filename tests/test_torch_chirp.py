@@ -48,7 +48,7 @@ def _compare(cfg_kwargs, x):
 def test_full_rate_branch_matches_jax():
     cfg = tchirp.ChirpConfig(**TINY)
     n = cfg.total_samples + 3000
-    assert tchirp.ChirpDetector(cfg, n).zoom is False
+    assert tchirp.ChirpDetector(cfg, n, "cpu").zoom is False
     x = _windows(TINY, n, [(700, 0.0), (1200, 8.0), (300, -8.0), None], seed=3)
     det, start, cfo, _, _ = _compare(TINY, x)
     assert det.tolist() == [True, True, True, False]
@@ -60,7 +60,7 @@ def test_zoom_branch_matches_jax():
     nfft 262,144): a +8 Hz CFO row and a pure-noise row (CFAR reject)."""
     cfg = tchirp.ChirpConfig()
     n = 207328
-    assert tchirp.ChirpDetector(cfg, n).zoom is True
+    assert tchirp.ChirpDetector(cfg, n, "cpu").zoom is True
     x = _windows({}, n, [(5123, 8.0), None], seed=11)
     det, start, cfo, _, _ = _compare({}, x)
     assert det.tolist() == [True, False]

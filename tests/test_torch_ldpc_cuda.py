@@ -22,6 +22,7 @@ from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.fec.ldpc import decode_batch, ldpc_decoder
 from ria_tpu_torch.fec.ldpc_cuda import make_cuda_decoder, make_cuda_decoder_v1
 from ria_tpu_torch.fec.ldpc_matrix import CODE_PARAMS, encode_np, get_code
+from ria_tpu_torch.tools import ldpc_bench
 
 torch.set_num_threads(1)
 
@@ -103,13 +104,15 @@ def test_wrapper_rejects_bad_input(cuda_device):
     dec = ldpc_decoder("R1_2", 30, cuda_device)
     x = torch.zeros((4, 648), device=cuda_device)
     f = torch.full((4,), 0.75, device=cuda_device)
-    args = (dec.row_idx, dec.row_mask, dec.col_ptr, dec.col_edge, dec.k, 30)
+    args = (dec.k1, dec.k, 30)
     with pytest.raises(TypeError):
         ldpc_kernel.bp_decode(x.double(), f, *args)
     with pytest.raises(ValueError):
         ldpc_kernel.bp_decode(x[:, :600], f, *args)
     with pytest.raises(ValueError):
         ldpc_kernel.bp_decode(x.t().contiguous().t(), f, *args)
+    with pytest.raises(ValueError):
+        ldpc_kernel.bp_decode(x, f[:3], *args)
 
 
 @pytest.mark.cuda
@@ -156,7 +159,7 @@ def test_k2_wrapper_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError):
         ldpc_kernel.bp_decode_v1(x.t().contiguous().t(), f, *args)
     with pytest.raises(ValueError):
-        ldpc_kernel.bp_decode_v1(x, f, dec.row_idx, dec.row_mask, dec.col_ptr,
+        ldpc_kernel.bp_decode_v1(x, f, dec.row_idx, dec.row_mask, dec.k1_jobs,
                                  dec.slot_chk, dec.k, 30)
     with pytest.raises(ValueError):
         ldpc_kernel.bp_decode_v1(x.cpu(), f.cpu(), *(t.cpu() for t in args[:4]), dec.k, 30)
@@ -172,7 +175,7 @@ def test_decode_with_retries_on_card(cuda_device):
     torch.cuda.synchronize()
     assert ldpc_kernel.LAUNCHES - before == 2
     assert got.success.device.type == "cuda"
-    _assert_matches(got, T.decode_with_retries(llr, "R1_2"))
+    _assert_matches(got, T.decode_with_retries(llr, "R1_2", device="cpu"))
 
 
 @pytest.mark.cuda
@@ -186,8 +189,75 @@ def test_codec_and_candidates_on_card(cuda_device):
         assert ok and decoded[: len(data)] == data
     llr = _bpsk_llrs("R1_4", 6, 4, 10 ** (-1.0 / 20))
     got = T.decode_candidates(llr, "R1_4", device=cuda_device)
-    want = T.decode_candidates(llr, "R1_4")
+    want = T.decode_candidates(llr, "R1_4", device="cpu")
     assert [len(c) for c in got] == [len(c) for c in want] and any(want)
     for cands, r_cands in zip(got, want):
         for (m, bits), (r_m, r_bits) in zip(cands, r_cands):
             assert np.array_equal(bits, r_bits) and abs(m - r_m) <= 1e-3
+
+
+def _k1_vs_plain(dec, x, f):
+    before = ldpc_kernel.LAUNCHES
+    got = dec(x, f)
+    torch.cuda.synchronize()
+    assert ldpc_kernel.LAUNCHES == before + 1
+    want = dec.plain(x, f)
+    _assert_matches(got, want)
+    return got
+
+
+@pytest.mark.cuda
+def test_k1_single_codeword_runs_every_iteration(cuda_device):
+    """B = 1 on an A/B row (R1/4, -1 dB) that never converges: the block
+    runs all 50 iterations alone, the serial floor chip_smoke.py times."""
+    llr = torch.as_tensor(ldpc_bench.make_llrs("R1_4", 512, -1.0)[1], device=cuda_device)
+    dec = ldpc_decoder("R1_4", 50, cuda_device)
+    f = torch.full((512,), 0.75, device=cuda_device)
+    plain = dec.plain(llr, f)
+    row = int(torch.nonzero((plain.iterations == 50) & ~plain.success)[0])
+    got = _k1_vs_plain(dec, llr[row : row + 1], f[:1])
+    assert int(got.iterations[0]) == 50 and not bool(got.success[0])
+    assert torch.allclose(got.llr_total, plain.llr_total[row : row + 1], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_k1_more_blocks_than_resident(cuda_device):
+    """B = 2,048 codewords: more blocks than the card holds at once (528)."""
+    llr = _llrs("R1_4", 2048, 3.4, seed=11)
+    x = torch.as_tensor(llr, device=cuda_device)
+    f = torch.as_tensor(np.resize(LADDER, 2048), device=cuda_device)
+    got = _k1_vs_plain(ldpc_decoder("R1_4", 50, cuda_device), x, f)
+    assert got.success.any() and not got.success.all()
+
+
+@pytest.mark.cuda
+def test_k1_eighty_iterations_r12(cuda_device):
+    x = torch.as_tensor(_bpsk_llrs("R1_2", 8, 128, 10 ** (-3.0 / 20)), device=cuda_device)
+    f = torch.full((128,), 0.75, device=cuda_device)
+    got = _k1_vs_plain(ldpc_decoder("R1_2", 80, cuda_device), x, f)
+    assert int(got.iterations.max()) == 80 and got.success.any()
+
+
+@pytest.mark.cuda
+def test_k1_takes_unaligned_rows(cuda_device):
+    """A row that starts off the bulk copy's 16-byte grid is copied first."""
+    llr = torch.as_tensor(_llrs("R1_2", 4, 1.5, seed=2), device=cuda_device)
+    flat = torch.zeros(4 * 648 + 1, device=cuda_device)
+    flat[1:] = llr.reshape(-1)
+    x = flat[1:].view(4, 648)
+    assert x.data_ptr() % 16
+    f = torch.full((4,), 0.75, device=cuda_device)
+    dec = ldpc_decoder("R1_2", 30, cuda_device)
+    for a, b in zip(_k1_vs_plain(dec, x, f), dec(llr, f)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k1_resources_hold_the_ab_batch(cuda_device):
+    """No spill, at most 32 registers, and every codeword of the A/B point
+    (512) resident at once."""
+    dec = ldpc_decoder("R1_4", 50, cuda_device)
+    res = ldpc_kernel.k1_resources(dec.n, dec.k1.slots)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert res["local_bytes"] == 0 and res["registers"] <= 32
+    assert res["blocks_per_sm"] * sms >= 512

@@ -66,12 +66,12 @@ def test_decode_with_retries_matches_jax(case, monkeypatch):
     llr = _bpsk_llrs("R1_2", 5, 4, sigma)
     ref = J.decode_with_retries(llr, "R1_2")
     calls = _count_dispatches(monkeypatch)
-    port = T.decode_with_retries(llr, "R1_2")
+    port = T.decode_with_retries(llr, "R1_2", device="cpu")
     success = _assert_same_result(port, ref)
     if case == "ladder":
         # The primary batch fails somewhere and the ladder rescues a row.
         assert calls[0] == 4 and len(calls) == 2 and calls[1] > calls[0]
-        primary = T.decode_batch(llr, np.full(4, 0.9375, np.float32), "R1_2")
+        primary = T.decode_batch(llr, np.full(4, 0.9375, np.float32), "R1_2", device="cpu")
         assert (success & ~primary.success.numpy()).any()
     else:
         assert calls == [4] and success.all()
@@ -99,7 +99,7 @@ def test_decode_candidates_matches_jax(kind, num_failed, monkeypatch):
         iters = None
     ref = J.decode_candidates(llrs, "R1_4", iters, num_failed=num_failed)
     calls = _count_dispatches(monkeypatch)
-    port = T.decode_candidates(llrs, "R1_4", iters, num_failed=num_failed)
+    port = T.decode_candidates(llrs, "R1_4", iters, num_failed=num_failed, device="cpu")
     assert calls == [len(T.candidate_plan(num_failed)) * 4]
     assert calls[0] <= 29 * 4
     if num_failed == 0:
@@ -124,12 +124,12 @@ def _golden_vectors():
 @pytest.mark.parametrize("rate", sorted(_golden_vectors()))
 def test_codec_encode_reproduces_golden(rate):
     data, expected = _golden_vectors()[rate]
-    assert T.LDPCCodec(rate).encode(data) == expected
+    assert T.LDPCCodec(rate, device="cpu").encode(data) == expected
 
 
 @pytest.mark.parametrize("rate", list(CODE_PARAMS))
 def test_codec_hard_roundtrip(rate):
-    codec = T.LDPCCodec(rate)
+    codec = T.LDPCCodec(rate, device="cpu")
     data = bytes(range(40))
     coded = codec.encode(data)
     assert len(coded) == codec.coded_size(len(data))
@@ -144,20 +144,20 @@ def test_codec_multiblock_soft_matches_jax():
     variables keep their channel LLR, so a noise flip there stays."""
     rate = "R3_4"
     data = bytes(np.random.default_rng(3).integers(0, 256, 200, dtype=np.uint8))
-    coded = bytes_to_bits(T.LDPCCodec(rate).encode(data)).astype(np.float32)
+    coded = bytes_to_bits(T.LDPCCodec(rate, device="cpu").encode(data)).astype(np.float32)
     rng = np.random.default_rng(4)
     llrs = ((1 - 2 * coded) * 4.0 + rng.normal(0, 2.0, coded.shape)).astype(np.float32)
-    port, ref = T.LDPCCodec(rate), J.LDPCCodec(rate)
+    port, ref = T.LDPCCodec(rate, device="cpu"), J.LDPCCodec(rate)
     got, want = port.decode_soft(llrs), ref.decode_soft(llrs)
     assert got == want
     assert got[0] and len(got[1]) == 243  # 4 blocks x 486 bits
     assert (port.last_success, port.last_iters) == (ref.last_success, ref.last_iters)
     assert port.last_iters > 1
-    assert T.LDPCCodec(rate).decode_soft(np.zeros(0)) == (False, b"")
+    assert T.LDPCCodec(rate, device="cpu").decode_soft(np.zeros(0)) == (False, b"")
 
 
 def test_make_tile_decoder_on_cpu_is_the_plain_decoder():
-    fn, pad_to = T.make_tile_decoder("R1_2", 30, 0.9375)
+    fn, pad_to = T.make_tile_decoder("R1_2", 30, 0.9375, "cpu")
     assert pad_to is None
     jfn, jpad = J.make_tile_decoder("R1_2", 30, 0.9375)
     assert jpad is None
@@ -168,11 +168,11 @@ def test_make_tile_decoder_on_cpu_is_the_plain_decoder():
 def test_decode_chunked_matches_jax():
     llr = _bpsk_llrs("R1_4", 2, 20, 10 ** (1.0 / 20))
     ref = J.decode_chunked(llr, "R1_4", chunk=8, max_iters=30)
-    port = T.decode_chunked(llr, "R1_4", chunk=8, max_iters=30)
+    port = T.decode_chunked(llr, "R1_4", chunk=8, max_iters=30, device="cpu")
     assert port.llr_total.shape == (20, 648)
     success = _assert_same_result(port, ref)
     assert success.any() and not success.all()
-    whole = T.decode_batch(llr, np.full(20, 0.75, np.float32), "R1_4", 30)
+    whole = T.decode_batch(llr, np.full(20, 0.75, np.float32), "R1_4", 30, "cpu")
     for a, b in zip(port, whole):
         assert torch.equal(a, b)
 

@@ -107,5 +107,5 @@ def test_encoder_reproduces_golden(rate):
     blocks = -(-len(bits) // k)
     padded = np.zeros(blocks * k, np.uint8)
     padded[: len(bits)] = bits
-    coded = make_encoder(rate)(torch.as_tensor(padded.reshape(blocks, k)))
+    coded = make_encoder(rate, "cpu")(torch.as_tensor(padded.reshape(blocks, k)))
     assert bits_to_bytes(coded.numpy().reshape(-1)) == expected

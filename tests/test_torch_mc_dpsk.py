@@ -60,7 +60,7 @@ def test_modulate_and_preamble_match(name):
 def test_tx_pipeline_matches(name):
     tcfg, jcfg = _cfgs(name)
     bits = np.random.default_rng(2).integers(0, 2, (3, 648)).astype(np.uint8)
-    got = make_tx_pipeline(tcfg, 1)(torch.as_tensor(bits)).numpy()
+    got = make_tx_pipeline(tcfg, 1, "cpu")(torch.as_tensor(bits)).numpy()
     want = np.asarray(jax_tx_pipeline(jcfg, 1)(jnp.asarray(bits)))
     assert got.shape == want.shape and got.dtype == np.float32
     assert np.allclose(got, want, rtol=0, atol=1e-5)
