@@ -11,9 +11,9 @@ eight phases, each printing its lines and raising on failure:
 
 1. device: the card's name and power limit, as nvidia-smi gives them;
 2. build: nvcc for sm_90a, both sources at once, with each build time and
-   ptxas resource lines; K1's registers, spill and shared bytes as the CUDA
-   runtime reports them, and how many codewords the card holds at once
-   (it fails on any spill, or if fewer than the A/B point's 512 fit);
+   ptxas resource lines; K1's and K2's registers, spill and shared bytes as
+   the CUDA runtime reports them, and how many codewords the card holds at
+   once (it fails on any spill, or if fewer than the A/B point's 512 fit);
 3. kernels vs plain: K1 against the plain PyTorch decoder, and K2 against
    its plain version (``plain_v1``) and against K1, on the card, for every
    rate at B = 8 and 256 and for R1/4 at B = 512 (mixed difficulty);
@@ -121,12 +121,10 @@ def bound_us(dec, kernel: str, B: int, iterations: int) -> tuple[float, str]:
     kernel's tables) and each output byte written once (posteriors, info
     bits, success, iterations), against the operations these iterations
     need."""
-    n, m, k, D = dec.n, dec.m, dec.k, dec.D
+    n, k = dec.n, dec.k
     io = B * (4 * n + 4) + B * (4 * n + k + 1 + 4)
-    if kernel == "K1":
-        tables = sum(t.numel() * t.element_size() for t in (dec.k1_row, dec.k1_epos, dec.k1_jobs))
-    else:
-        tables = (4 * m * D + m * D + dec.slot_ptr.numel() * 4 + dec.slot_chk.numel() * 4)
+    t = dec.k1 if kernel == "K1" else dec.k2
+    tables = sum(x.numel() * x.element_size() for x in (t.row, t.epos, t.jobs))
     edges = int(dec.row_mask.sum())
     ops = iterations * (OPS_PER_EDGE * edges + n)
     t_bytes = (io + tables) / HBM_BYTES_PER_S * 1e6
@@ -168,16 +166,17 @@ def main() -> int:
         for line in b.log.splitlines():
             if "registers" in line or "bytes stack" in line:
                 log(f"  ptxas: {line.strip()}")
-    k1_dec = ldpc_decoder(RATE, None, dev)
-    res = ldpc_kernel.k1_resources(k1_dec.n, k1_dec.k1.slots)
+    rate_dec = ldpc_decoder(RATE, None, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    resident = res["blocks_per_sm"] * sms
-    log(f"[2 build] K1 at {RATE}: {res['registers']} registers and {res['local_bytes']} "
-        f"bytes of local (spill) memory per thread, {res['shared_bytes']} shared bytes per "
-        f"block; {res['blocks_per_sm']} blocks per SM x {sms} SMs = {resident} codewords "
-        "resident at once")
-    if res["local_bytes"] or resident < 512:
-        raise AssertionError("K1 spills, or fewer than 512 codewords are resident at once")
+    for name, res in (("K1", ldpc_kernel.k1_resources(rate_dec.n, rate_dec.k1.slots)),
+                      ("K2", ldpc_kernel.k2_resources(rate_dec.n, rate_dec.k2.slots))):
+        resident = res["blocks_per_sm"] * sms
+        log(f"[2 build] {name} at {RATE}: {res['registers']} registers and "
+            f"{res['local_bytes']} bytes of local (spill) memory per thread, "
+            f"{res['shared_bytes']} shared bytes per block; {res['blocks_per_sm']} blocks per "
+            f"SM x {sms} SMs = {resident} codewords resident at once")
+        if res["local_bytes"] or resident < 512:
+            raise AssertionError(f"{name} spills, or fewer than 512 codewords are resident")
 
     # -- 3. kernels vs plain, on the card -------------------------------------
     rng = np.random.default_rng(1234)

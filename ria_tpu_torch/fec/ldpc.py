@@ -62,8 +62,8 @@ class LDPCDecoder(nn.Module):
     The code's tables are buffers, built once here: ``gather`` (one-hot
     [m*D, n], plain decoders), ``row_idx``/``row_mask`` ([m, D]), K1's
     ``k1_row``/``k1_epos``/``k1_jobs`` (:func:`ldpc_kernel.k1_layout`,
-    checked once into ``self.k1``) and the per-slot variable->check lists
-    ``slot_ptr``/``slot_chk`` (K2).
+    checked once into ``self.k1``) and K2's ``k2_row``/``k2_epos``/``k2_jobs``
+    (:func:`ldpc_kernel.k2_layout`, checked once into ``self.k2``).
     """
 
     def __init__(self, code: LDPCCode, max_iters: int | None = None,
@@ -81,9 +81,12 @@ class LDPCDecoder(nn.Module):
         self.register_buffer("k1_jobs", torch.as_tensor(layout.jobs, device=dev))
         self.k1 = ldpc_kernel.k1_tables(layout, self.k1_row, self.k1_epos, self.k1_jobs,
                                         code.n)
-        slot_ptr, slot_chk = ldpc_kernel.slot_tables(code.row_idx, code.row_mask, code.n)
-        self.register_buffer("slot_ptr", torch.as_tensor(slot_ptr, device=dev))
-        self.register_buffer("slot_chk", torch.as_tensor(slot_chk, device=dev))
+        layout2 = ldpc_kernel.k2_layout(code.row_idx, code.row_mask, code.n)
+        self.register_buffer("k2_row", torch.as_tensor(layout2.row, device=dev))
+        self.register_buffer("k2_epos", torch.as_tensor(layout2.epos, device=dev))
+        self.register_buffer("k2_jobs", torch.as_tensor(layout2.jobs, device=dev))
+        self.k2 = ldpc_kernel.k2_tables(layout2, self.k2_row, self.k2_epos, self.k2_jobs,
+                                        code.n)
 
     def forward(self, llrs: torch.Tensor, factors: torch.Tensor) -> DecodeResult:
         if llrs.device.type == "cuda":

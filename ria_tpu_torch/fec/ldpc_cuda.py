@@ -59,8 +59,6 @@ def make_cuda_decoder_v1(rate: str, max_iters: int | None = None,
 
     def decode(llrs: torch.Tensor, factors: torch.Tensor | None = None) -> DecodeResult:
         x, f = _args(llrs, factors, min_sum_factor)
-        return DecodeResult(*ldpc_kernel.bp_decode_v1(
-            x, f, dec.row_idx, dec.row_mask, dec.slot_ptr, dec.slot_chk, dec.k,
-            dec.max_iters))
+        return DecodeResult(*ldpc_kernel.bp_decode_v1(x, f, dec.k2, dec.k, dec.max_iters))
 
     return decode

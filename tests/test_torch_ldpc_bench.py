@@ -57,5 +57,5 @@ def test_cuda_builders_take_no_cpu():
             make("R1_2", device="cpu")
     dec = ldpc_decoder("R1_2", 30, "cpu")
     with pytest.raises(ValueError):
-        ldpc_kernel.bp_decode_v1(torch.zeros((2, 648)), torch.full((2,), 0.75), dec.row_idx,
-                                 dec.row_mask, dec.slot_ptr, dec.slot_chk, dec.k, 30)
+        ldpc_kernel.bp_decode_v1(torch.zeros((2, 648)), torch.full((2,), 0.75), dec.k2,
+                                 dec.k, 30)

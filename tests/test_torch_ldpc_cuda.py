@@ -151,7 +151,7 @@ def test_k2_wrapper_rejects_bad_input(cuda_device):
     dec = ldpc_decoder("R1_2", 30, cuda_device)
     x = torch.zeros((4, 648), device=cuda_device)
     f = torch.full((4,), 0.75, device=cuda_device)
-    args = (dec.row_idx, dec.row_mask, dec.slot_ptr, dec.slot_chk, dec.k, 30)
+    args = (dec.k2, dec.k, 30)
     with pytest.raises(TypeError):
         ldpc_kernel.bp_decode_v1(x.double(), f, *args)
     with pytest.raises(ValueError):
@@ -159,10 +159,9 @@ def test_k2_wrapper_rejects_bad_input(cuda_device):
     with pytest.raises(ValueError):
         ldpc_kernel.bp_decode_v1(x.t().contiguous().t(), f, *args)
     with pytest.raises(ValueError):
-        ldpc_kernel.bp_decode_v1(x, f, dec.row_idx, dec.row_mask, dec.k1_jobs,
-                                 dec.slot_chk, dec.k, 30)
+        ldpc_kernel.bp_decode_v1(x, f[:3], *args)
     with pytest.raises(ValueError):
-        ldpc_kernel.bp_decode_v1(x.cpu(), f.cpu(), *(t.cpu() for t in args[:4]), dec.k, 30)
+        ldpc_kernel.bp_decode_v1(x.cpu(), f.cpu(), *args)
 
 
 @pytest.mark.cuda
@@ -258,6 +257,73 @@ def test_k1_resources_hold_the_ab_batch(cuda_device):
     (512) resident at once."""
     dec = ldpc_decoder("R1_4", 50, cuda_device)
     res = ldpc_kernel.k1_resources(dec.n, dec.k1.slots)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert res["local_bytes"] == 0 and res["registers"] <= 32
+    assert res["blocks_per_sm"] * sms >= 512
+
+
+def _k2_vs_plain_v1(dec, x, f):
+    before = ldpc_kernel.LAUNCHES_V1
+    got = ldpc_kernel.bp_decode_v1(x, f, dec.k2, dec.k, dec.max_iters)
+    torch.cuda.synchronize()
+    assert ldpc_kernel.LAUNCHES_V1 == before + 1
+    _assert_matches(got, dec.plain_v1(x, f))
+    return got
+
+
+@pytest.mark.cuda
+def test_k2_single_codeword_runs_every_iteration(cuda_device):
+    """B = 1 on an A/B row (R1/4, -1 dB) that never converges: the block
+    runs all 50 iterations alone, the serial floor chip_smoke.py times."""
+    llr = torch.as_tensor(ldpc_bench.make_llrs("R1_4", 512, -1.0)[1], device=cuda_device)
+    dec = ldpc_decoder("R1_4", 50, cuda_device)
+    f = torch.full((512,), 0.75, device=cuda_device)
+    plain = dec.plain_v1(llr, f)
+    row = int(torch.nonzero((plain.iterations == 50) & ~plain.success)[0])
+    got = _k2_vs_plain_v1(dec, llr[row : row + 1], f[:1])
+    assert int(got[2][0]) == 50 and not bool(got[1][0])
+    assert torch.allclose(got[3], plain.llr_total[row : row + 1], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+def test_k2_more_blocks_than_resident(cuda_device):
+    """B = 2,048 codewords: more blocks than the card holds at once (528)."""
+    llr = _llrs("R1_4", 2048, 3.4, seed=11)
+    x = torch.as_tensor(llr, device=cuda_device)
+    f = torch.as_tensor(np.resize(LADDER, 2048), device=cuda_device)
+    got = _k2_vs_plain_v1(ldpc_decoder("R1_4", 50, cuda_device), x, f)
+    assert got[1].any() and not got[1].all()
+
+
+@pytest.mark.cuda
+def test_k2_eighty_iterations_r12(cuda_device):
+    x = torch.as_tensor(_bpsk_llrs("R1_2", 8, 128, 10 ** (-3.0 / 20)), device=cuda_device)
+    f = torch.full((128,), 0.75, device=cuda_device)
+    got = _k2_vs_plain_v1(ldpc_decoder("R1_2", 80, cuda_device), x, f)
+    assert int(got[2].max()) == 80 and got[1].any()
+
+
+@pytest.mark.cuda
+def test_k2_takes_unaligned_rows(cuda_device):
+    """A row that starts off the bulk copy's 16-byte grid is copied first."""
+    llr = torch.as_tensor(_llrs("R1_2", 4, 1.5, seed=2), device=cuda_device)
+    flat = torch.zeros(4 * 648 + 1, device=cuda_device)
+    flat[1:] = llr.reshape(-1)
+    x = flat[1:].view(4, 648)
+    assert x.data_ptr() % 16
+    f = torch.full((4,), 0.75, device=cuda_device)
+    dec = ldpc_decoder("R1_2", 30, cuda_device)
+    want = ldpc_kernel.bp_decode_v1(llr, f, dec.k2, dec.k, 30)
+    for a, b in zip(_k2_vs_plain_v1(dec, x, f), want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_k2_resources_hold_the_ab_batch(cuda_device):
+    """No spill, at most 32 registers, and every codeword of the A/B point
+    (512) resident at once."""
+    dec = ldpc_decoder("R1_4", 50, cuda_device)
+    res = ldpc_kernel.k2_resources(dec.n, dec.k2.slots)
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert res["local_bytes"] == 0 and res["registers"] <= 32
     assert res["blocks_per_sm"] * sms >= 512
