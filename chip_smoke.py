@@ -7,13 +7,14 @@ Run from the root of a checkout, with one CUDA card visible:
 
 It builds the LDPC kernels K1 (``ria_tpu_torch/csrc/ldpc_bp.cu``) and K2
 (``ria_tpu_torch/csrc/ldpc_bp_v1.cu``) from the checkout's sources and runs
-eight phases, each printing its lines and raising on failure:
+these phases, each printing its lines and raising on failure:
 
 1. device: the card's name and power limit, as nvidia-smi gives them;
 2. build: nvcc for sm_90a, both sources at once, with each build time and
    ptxas resource lines; K1's and K2's registers, spill and shared bytes as
    the CUDA runtime reports them, and how many codewords the card holds at
    once (it fails on any spill, or if fewer than the A/B point's 512 fit);
+   K1's at R1/2 and R3/4 too, the rates the OFDM chains decode (no spill);
 3. kernels vs plain: K1 against the plain PyTorch decoder, and K2 against
    its plain version (``plain_v1``) and against K1, on the card, for every
    rate at B = 8 and 256 and for R1/4 at B = 512 (mixed difficulty);
@@ -21,6 +22,11 @@ eight phases, each printing its lines and raising on failure:
    channels, window 207,328, R1/4, 4 codewords, 10 dB AWGN) from the port's
    own TX, checked against the transmitted bits and against the same chain
    on the CPU, with K1's launch count from that run;
+4b. OFDM chains: bench.py's chains 2 and 3 (north-star configs #3, DQPSK
+   R1/2 at 15 dB, window 42,720, and #4, QAM64 R3/4 at 25 dB, window
+   26,160; 64 channels each) from the port's own TX: all detected,
+   cw_decode_rate >= 0.95, bits equal to those sent, one K1 launch and no K2
+   launch in the call, and the same chain on the CPU equal;
 5. A/B entry point: ``ria_tpu_torch.tools.ldpc_bench`` at its default size
    (R1/4, B = 512, -1 dB), K1, K2 and the plain decoder reporting the same
    success set and bit accuracy, with K2's launch count from that run; then
@@ -35,7 +41,12 @@ eight phases, each printing its lines and raising on failure:
    bytes over 3.35 TB/s and operations over 67 TFLOP/s, the H100 SXM's
    published peaks) and the share of the bound it reaches, and the K1/K2
    device-time ratio; the serial floor (K1 and K2 at B = 1 on an A/B row
-   that runs all 50 iterations); K1's host microseconds per call;
+   that runs all 50 iterations); K1's host microseconds per call; for each
+   OFDM chain its ms per call and samples/s, and K1's device time on the
+   chain's own 256 codewords with its bound and share; for every chain and
+   for its sync and sync-to-soft-bits stages, the ms per call, the device
+   kernels, copies and memsets of one call and the share of the call the
+   device is busy (profiler trace);
 8. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -147,15 +158,15 @@ def main() -> int:
     log(card)
     dev = torch.device("cuda", 0)
 
-    from ria_tpu_torch.entry import RATE, _make_batch, geometry
+    from ria_tpu_torch.entry import RATE, _make_batch, _make_ofdm_batch, geometry, ofdm_geometry
     from ria_tpu_torch.fec import ldpc as L
     from ria_tpu_torch.fec import ldpc_kernel
     from ria_tpu_torch.fec.ldpc import ldpc_decoder
     from ria_tpu_torch.fec.ldpc_cuda import make_cuda_decoder_v1
     from ria_tpu_torch.fec.ldpc_matrix import CODE_PARAMS, MIN_SUM_FACTOR
-    from ria_tpu_torch.phy.pipeline import make_rx_pipeline
+    from ria_tpu_torch.phy.pipeline import make_ofdm_rx_pipeline, make_rx_pipeline
     from ria_tpu_torch.tools import ldpc_bench
-    from ria_tpu_torch.utils.timing import cuda_ms, device_us
+    from ria_tpu_torch.utils.timing import cuda_ms, device_us, trace_call
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -177,6 +188,15 @@ def main() -> int:
             f"SM x {sms} SMs = {resident} codewords resident at once")
         if res["local_bytes"] or resident < 512:
             raise AssertionError(f"{name} spills, or fewer than 512 codewords are resident")
+    for rate in ("R1_2", "R3_4"):
+        dec_r = ldpc_decoder(rate, None, dev)
+        res = ldpc_kernel.k1_resources(dec_r.n, dec_r.k1.slots)
+        log(f"[2 build] K1 at {rate}: {res['registers']} registers and {res['local_bytes']} "
+            f"bytes of local (spill) memory per thread, {res['shared_bytes']} shared bytes per "
+            f"block; {res['blocks_per_sm']} blocks per SM x {sms} SMs = "
+            f"{res['blocks_per_sm'] * sms} codewords resident at once")
+        if res["local_bytes"]:
+            raise AssertionError(f"K1 spills at {rate}")
 
     # -- 3. kernels vs plain, on the card -------------------------------------
     rng = np.random.default_rng(1234)
@@ -243,6 +263,49 @@ def main() -> int:
         f"max |cfo err| {cfo_err:.3g} Hz, max |snr err| {snr_err:.3g} dB")
     if cfo_err > 1e-3 or snr_err > 1e-3:
         raise AssertionError("cfo_hz or snr_db differs between the card and the CPU")
+
+    # -- 4b. OFDM chains ------------------------------------------------------
+    ofdm = {}
+    for config, path in ((3, "ofdm_dqpsk_r12"), (4, "ofdm_qam64_r34")):
+        geom = ofdm_geometry(config)
+        o_audio, o_info = _make_ofdm_batch(geom, seed=0, device=dev)
+        orx = make_ofdm_rx_pipeline(geom.cfg, geom.rate, geom.window, geom.ci_bits, device=dev)
+        torch.cuda.synchronize()
+        ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
+        o_out = orx(o_audio)
+        torch.cuda.synchronize()
+        o_launches = (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_V1)
+        det = o_out.detected.cpu().numpy()
+        ok = o_out.cw_success.cpu().numpy()
+        tag = (f"[4b OFDM] config #{config} {geom.cfg.modulation} {geom.rate} at "
+               f"{geom.snr_db:g} dB, B={geom.batch} window={geom.window}")
+        log(f"{tag}: detected {int(det.sum())}/{geom.batch}, cw_decode_rate {ok.mean():.4f}, "
+            f"K1 launches {o_launches[0]}, K2 launches {o_launches[1]}")
+        if o_out.info_bits.shape != o_info.shape:
+            raise AssertionError(f"info_bits shape {tuple(o_out.info_bits.shape)}")
+        if not torch.isfinite(o_out.snr_db).all() or not torch.isfinite(o_out.cfo_hz).all():
+            raise AssertionError("non-finite snr_db or cfo_hz")
+        if not det.all():
+            raise AssertionError(f"only {int(det.sum())}/{geom.batch} channels detected")
+        if ok.mean() < 0.95:
+            raise AssertionError(f"cw_decode_rate {ok.mean():.4f} < 0.95")
+        if not (o_out.info_bits.cpu().numpy() == o_info)[ok].all():
+            raise AssertionError("decoded info bits differ from the transmitted bits")
+        if o_launches != (1, 0):
+            raise AssertionError(f"the chain launched K1 {o_launches[0]} and K2 "
+                                 f"{o_launches[1]} times; 1 and 0 expected")
+        cpu = make_ofdm_rx_pipeline(geom.cfg, geom.rate, geom.window, geom.ci_bits,
+                                    device="cpu")(o_audio.cpu())
+        for name in ("detected", "lts_start", "cw_success", "info_bits", "iterations"):
+            if not torch.equal(getattr(cpu, name), getattr(o_out, name).cpu()):
+                raise AssertionError(f"{name} differs between the card and the CPU ({path})")
+        cfo_err = float((cpu.cfo_hz - o_out.cfo_hz.cpu()).abs().max())
+        snr_err = float((cpu.snr_db - o_out.snr_db.cpu()).abs().max())
+        log(f"{tag}: card vs CPU: detected/lts_start/cw_success/info_bits/iterations equal, "
+            f"max |cfo err| {cfo_err:.3g} Hz, max |snr err| {snr_err:.3g} dB")
+        if cfo_err > 1e-3 or snr_err > 1e-3:
+            raise AssertionError(f"cfo_hz or snr_db differs between the card and the CPU ({path})")
+        ofdm[path] = (geom, orx, o_audio, o_launches)
 
     # -- 5. A/B entry point ---------------------------------------------------
     log(f"[5 A/B] python -m ria_tpu_torch.tools.ldpc_bench {' '.join(BENCH_ARGS)}")
@@ -321,6 +384,31 @@ def main() -> int:
     log(f"[7 timing] RX chain B={batch} window={window}: median {rx_ms:.3f} ms/call "
         f"(min {rx_lo:.3f}, max {rx_hi:.3f}, 7 windows of 10 calls), "
         f"{batch * window / rx_ms * 1e3:.4g} samples/s")
+    chain_ms = {"mc_dpsk": rx_ms}
+    for path, (geom, orx, o_audio, _) in ofdm.items():
+        for _ in range(3):
+            orx(o_audio)
+        o_ms, o_lo, o_hi = cuda_ms(lambda: orx(o_audio), 10)
+        chain_ms[path] = o_ms
+        log(f"[7 timing] OFDM {path} B={geom.batch} window={geom.window}: median {o_ms:.3f} "
+            f"ms/call (min {o_lo:.3f}, max {o_hi:.3f}, 7 windows of 10 calls), "
+            f"{geom.batch * geom.window / o_ms * 1e3:.4g} samples/s ({card})")
+    # Where each chain's time goes: its sync stage alone and sync to soft
+    # bits (slice, demodulation, deinterleave), timed like the whole call and,
+    # like it, before any profiler run (a profiled process launches slower).
+    chains = {"mc_dpsk": (rx, audio)}
+    chains.update({path: (run[1], run[2]) for path, run in ofdm.items()})
+    stages = {path: {"sync": lambda c=chain, x=x: c.sync(x),
+                     "sync..soft bits": lambda c=chain, x=x: c.soft_bits(x),
+                     "whole call": lambda c=chain, x=x: c(x)}
+              for path, (chain, x) in chains.items()}
+    for path in chains:
+        stage_ms = {stage: cuda_ms(stages[path][stage], 10)[0]
+                    for stage in ("sync", "sync..soft bits")}
+        stage_ms["whole call"] = chain_ms[path]
+        chain_ms[path] = stage_ms
+        log(f"[7 timing] {path} by stage (CUDA events, median of 7 x 10 calls): "
+            + ", ".join(f"{stage} {ms:.3f} ms" for stage, ms in stage_ms.items()) + f" ({card})")
     _, _, soft = rx.soft_bits(audio)
     dec = ldpc_decoder(RATE, None, dev)
     k2_dec = make_cuda_decoder_v1(RATE, device=dev)
@@ -378,6 +466,32 @@ def main() -> int:
                         f"{bounds[name][0] / us[name]:.2%} of it reached"
                         for name in us) + f" ({card})")
 
+    # K1 on each OFDM chain's own 256 codewords, at factor 0.9375.
+    for path, (geom, orx, o_audio, _) in ofdm.items():
+        _, _, o_soft = orx.soft_bits(o_audio)
+        o_dec = orx.decoder
+        o_f = torch.full((o_soft.shape[0],), orx.min_sum_factor, device=dev)
+        o_us = device_us(lambda: o_dec(o_soft, o_f), "ldpc_bp_kernel")
+        if o_us is None:
+            raise AssertionError(f"the profiler showed no device time for K1 ({path})")
+        o_iters = o_dec(o_soft, o_f).iterations
+        o_bound = bound_us(o_dec, "K1", o_soft.shape[0], int(o_iters.sum()))
+        log(f"[7 timing] K1 on {path} ({geom.rate}, B={o_soft.shape[0]}, mean iterations "
+            f"{o_iters.float().mean():.2f}): {o_us:.2f} us per launch (torch.profiler, 20 "
+            f"launches), bound {o_bound[0]:.3f} us ({o_bound[1]}), "
+            f"{o_bound[0] / o_us:.2%} of it reached ({card})")
+
+    # One call of each chain and of its stages under the profiler: the device
+    # kernels, copies and memsets, and the share of the stage's time the
+    # device is busy.
+    for path, fns in stages.items():
+        for stage, fn in fns.items():
+            n_dev, busy_us = trace_call(fn)
+            log(f"[7 timing] trace of one {path} {stage}: {n_dev} device kernels, copies and "
+                f"memsets, {busy_us / 1e3:.3f} ms device-busy, "
+                f"{busy_us / 1e3 / chain_ms[path][stage]:.1%} of its {chain_ms[path][stage]:.3f} "
+                f"ms ({card})")
+
     # The serial floor: one codeword alone for all 50 iterations.
     ab_k1 = dec(ab_llr, ab_fac)
     row = int(torch.nonzero((ab_k1.iterations == 50) & ~ab_k1.success)[0])
@@ -391,20 +505,24 @@ def main() -> int:
     # -- 8. result ------------------------------------------------------------
     # Times at the main path's 256 codewords.  ``launches`` counts the path
     # that runs each kernel (K1: the RX call; K2: the A/B entry point),
-    # ``launches_per_call`` the launches per RX call of the main path.  No
-    # PyTorch call computes min-sum BP, so there is no library time.
+    # ``launches_per_call`` the launches per RX call of the main path, and
+    # ``launches_per_call_by_path`` those of each chain's call.  No PyTorch
+    # call computes min-sum BP, so there is no library time.
     main_times = times["B=256 main path"]
     kernels = []
-    for name, source, replaces, n_launch, per_call in (
+    for i, (name, source, replaces, n_launch, per_call) in enumerate((
             ("K1", "ria_tpu_torch/csrc/ldpc_bp.cu", "ria_tpu/fec/ldpc_pallas.py:39",
              launches, launches),
             ("K2", "ria_tpu_torch/csrc/ldpc_bp_v1.cu", "ria_tpu/fec/ldpc_pallas.py:218",
-             launches_v1, launches_v1_main)):
+             launches_v1, launches_v1_main))):
         ms, plain_ms, dev_us, (b_us, b_by) = main_times[name]
+        by_path = {"mc_dpsk": per_call}
+        by_path.update({path: run[3][i] for path, run in ofdm.items()})
         kernels.append({
             "name": "ldpc_bp" if name == "K1" else "ldpc_bp_v1", "route": "cuda",
             "source": source, "replaces": replaces, "launches": n_launch,
-            "launches_per_call": per_call, "max_abs_err": max_err[name], "ms": ms,
+            "launches_per_call": per_call, "launches_per_call_by_path": by_path,
+            "max_abs_err": max_err[name], "ms": ms,
             "plain_ms": plain_ms, "device_us": dev_us, "bound_us": b_us,
             "bound_ms": b_us / 1e3, "bound_by": b_by, "library_ms": None})
     log(json.dumps({"kernels": kernels}))

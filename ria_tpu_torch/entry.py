@@ -7,19 +7,30 @@ The default is the small ``_tiny_cfg`` geometry of the CPU tests;
 of 10-carrier DBPSK, R1/4, 4 codewords per frame, a window of
 ``frame_samples(2592) + 12000`` = 207,328 samples, leads in [0, 8000) and
 10 dB AWGN.
+
+``ofdm_geometry`` and ``_make_ofdm_batch`` are the twins of bench.py's
+``_ofdm_case`` and ``_coherent_case``, its chains 2 and 3: the north-star
+configurations #3 (OFDM DQPSK R1/2 at 15 dB) and #4 (OFDM-COX QAM64 R3/4 at
+25 dB), fixed 4-codeword frames built by the port's own TX.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from ria_tpu_torch.fec.ldpc import make_encoder
+from ria_tpu_torch.fec.interleave import FRAME_CODEWORDS
 from ria_tpu_torch.fec.ldpc_matrix import get_code
+from ria_tpu_torch.phy.frame_v2 import encode_fixed_frame
 from ria_tpu_torch.phy.pipeline import LDPC_BITS, make_rx_pipeline, make_tx_pipeline
 from ria_tpu_torch.sync.chirp import ChirpConfig
+from ria_tpu_torch.utils.bits import bytes_to_bits
 from ria_tpu_torch.utils.device import resolve_device
 from ria_tpu_torch.wave.mc_dpsk import MCDPSKConfig
+from ria_tpu_torch.wave.ofdm import OFDMConfig, tx_frame
 
 RATE = "R1_4"
 
@@ -80,3 +91,73 @@ def entry(production: bool = False, device: str | torch.device = "cuda"):
     rx = make_rx_pipeline(cfg, RATE, ncw, window, device=device)
     audio, _ = _make_batch(cfg, ncw, batch, window, production=production, device=device)
     return rx, (audio,)
+
+
+@dataclass(frozen=True)
+class OFDMGeometry:
+    """One of bench.py's OFDM chains: the waveform, code rate, channel
+    interleave width, batch, window, lead range and SNR."""
+
+    cfg: OFDMConfig
+    rate: str
+    ci_bits: int
+    batch: int
+    window: int
+    max_lead: int
+    snr_db: float
+
+
+def ofdm_geometry(config: int) -> OFDMGeometry:
+    """bench.py chain 2 (``config=3``, ``_ofdm_case``) or chain 3
+    (``config=4``, ``_coherent_case``).
+
+    #3: DQPSK without pilots, R1/2; ci = 59 carriers x 2 = 118 bits, 22 data
+    symbols, window 7,840 + 24 x 1,120 + 8,000 = 42,720 samples, leads in
+    [0, 4000), 15 dB.  #4: QAM64 with pilots every 8th carrier (51 data + 8
+    pilots; the config ``create_waveform(OFDM_COX, "QAM64", "R3_4")`` builds),
+    R3/4; ci = 306 bits, 9 data symbols, window 7,840 + 11 x 1,120 + 6,000 =
+    26,160 samples, leads in [0, 3000), 25 dB.  Both at B = 64.
+    """
+    if config == 3:
+        cfg, rate, slack, max_lead, snr = (OFDMConfig(modulation="DQPSK", use_pilots=False),
+                                           "R1_2", 8000, 4000, 15.0)
+    elif config == 4:
+        cfg, rate, slack, max_lead, snr = (OFDMConfig(modulation="QAM64", use_pilots=True,
+                                                      pilot_spacing=8),
+                                           "R3_4", 6000, 3000, 25.0)
+    else:
+        raise ValueError(f"no OFDM chain for config {config}; 3 or 4")
+    S = cfg.num_symbols_for_bits(FRAME_CODEWORDS * LDPC_BITS)
+    window = cfg.preamble_samples + (2 + S) * cfg.symbol_samples + slack
+    return OFDMGeometry(cfg, rate, cfg.bits_per_ofdm_symbol(), 64, window, max_lead, snr)
+
+
+def _make_ofdm_batch(geom: OFDMGeometry, batch: int | None = None, seed: int = 0,
+                     device: str | torch.device = "cuda") -> tuple[torch.Tensor, np.ndarray]:
+    """TX a batch of fixed 4-codeword OFDM frames into audio windows.
+
+    Returns (audio [batch, window] f32 on ``device``, the sent info bits
+    [batch, 4, k] uint8).  All randomness comes from
+    ``np.random.default_rng(seed)`` in bench.py's order: per channel the
+    payload bytes, then its lead; then the noise over the whole batch, whose
+    sigma follows the LAST channel's TX rms, as bench.py's does.  The TX is
+    host numpy; ``batch`` defaults to the geometry's.
+    """
+    dev = resolve_device(device)
+    batch = geom.batch if batch is None else batch
+    rng = np.random.default_rng(seed)
+    k = get_code(geom.rate).k
+    bpc = k // 8
+    audio = np.zeros((batch, geom.window), np.float32)
+    info = np.zeros((batch, FRAME_CODEWORDS, k), np.uint8)
+    rms = 0.0
+    for b in range(batch):
+        payload = rng.integers(0, 256, FRAME_CODEWORDS * bpc).astype(np.uint8)
+        tx = tx_frame(encode_fixed_frame(payload.tobytes(), geom.rate, geom.ci_bits),
+                      geom.cfg, preamble="cox")
+        lead = int(rng.integers(0, geom.max_lead))
+        audio[b, lead : lead + len(tx)] = tx
+        rms = float(np.sqrt(np.mean(tx**2)))
+        info[b, :, : 8 * bpc] = bytes_to_bits(payload).reshape(FRAME_CODEWORDS, 8 * bpc)
+    audio += rng.normal(0, rms * 10 ** (-geom.snr_db / 20), audio.shape).astype(np.float32)
+    return torch.as_tensor(audio, device=dev), info

@@ -1,10 +1,15 @@
-"""Batched MC-DPSK RX/TX pipelines over channels, in PyTorch.
+"""Batched RX/TX pipelines over channels, in PyTorch.
 
-Port of the MC-DPSK half of ``ria_tpu/phy/pipeline.py``.  A whole window of
-audio per channel runs as one batched program: dual-chirp sync search
-(batched FFT correlation), per-channel frame slice, mixer-bank demodulation,
-and batched LDPC belief propagation for B independent channels at once.  On
-a CUDA device the decoder is kernel K1 (``csrc/ldpc_bp.cu``).
+Port of ``ria_tpu/phy/pipeline.py``.  A whole window of audio per channel
+runs as one batched program for B independent channels at once:
+
+- MC-DPSK: dual-chirp sync search (batched FFT correlation), per-channel
+  frame slice, mixer-bank demodulation, batched LDPC belief propagation;
+- OFDM: Schmidl-Cox search, frame slice, CP strip + 1024-pt FFT, LTS
+  channel estimate, MMSE (or pilot-tracking) equalization, soft demap,
+  frame and channel deinterleave as static gathers, batched LDPC BP.
+
+On a CUDA device the decoder is kernel K1 (``csrc/ldpc_bp.cu``).
 """
 
 from __future__ import annotations
@@ -15,6 +20,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ria_tpu_torch.fec.interleave import FRAME_CODEWORDS, channel_perm, frame_perm
 from ria_tpu_torch.fec.ldpc import LDPCDecoder, ldpc_decoder
 from ria_tpu_torch.fec.ldpc_matrix import RECOMMENDED_ITERS
 from ria_tpu_torch.sync.chirp import ChirpDetector, window_slice, generate as chirp_generate
@@ -25,6 +31,7 @@ from ria_tpu_torch.wave.mc_dpsk import (
     _synth_matrix,
     _training_matrix,
 )
+from ria_tpu_torch.wave.ofdm import OFDMConfig, OFDMDemodulator, SchmidlCoxDetector
 
 LDPC_BITS = 648
 
@@ -108,6 +115,86 @@ def make_rx_pipeline(cfg: MCDPSKConfig, rate: str, num_codewords: int,
     """Batch RX on ``device`` (the card by default; ``device="cpu"`` for the
     host): audio [B, window_samples] -> RxBatchResult."""
     return RxPipeline(cfg, rate, num_codewords, window_samples, min_sum_factor, device)
+
+
+class OFDMRxBatchResult(NamedTuple):
+    detected: torch.Tensor    # [B] bool
+    lts_start: torch.Tensor   # [B] int32
+    cfo_hz: torch.Tensor      # [B]
+    cw_success: torch.Tensor  # [B, 4] bool
+    info_bits: torch.Tensor   # [B, 4, k] uint8
+    iterations: torch.Tensor  # [B, 4]
+    snr_db: torch.Tensor      # [B]
+
+
+class OFDMRxPipeline(nn.Module):
+    """audio [B, window] -> OFDMRxBatchResult for fixed 4-codeword frames.
+
+    Buffers: the frame deinterleave gather (``frame_idx``, the inverse of
+    ``apply_perm``'s scatter form: x[..., frame_perm()]) and, with
+    ``ci_bits``, the channel deinterleave gather within each codeword
+    (``ci_idx``: x[..., channel_perm(ci_bits)]).
+    """
+
+    def __init__(self, cfg: OFDMConfig, rate: str, window_samples: int,
+                 ci_bits: int | None = None, min_sum_factor: float = 0.9375,
+                 device: str | torch.device = "cuda"):
+        super().__init__()
+        dev = resolve_device(device)
+        _full_fp32_matmul()
+        self.cfg = cfg
+        self.window_samples = window_samples
+        self.min_sum_factor = min_sum_factor
+        self.num_bits = FRAME_CODEWORDS * LDPC_BITS
+        S = cfg.num_symbols_for_bits(self.num_bits)
+        self.need = (2 + S) * cfg.symbol_samples
+        self.sync = SchmidlCoxDetector(cfg, window_samples, dev)
+        self.demod = OFDMDemodulator(cfg, S, 2, dev)
+        self.register_buffer("frame_idx", torch.as_tensor(frame_perm(), device=dev))
+        self.register_buffer("ci_idx", torch.as_tensor(channel_perm(ci_bits), device=dev)
+                             if ci_bits else None)
+        self.decoder = _pick_decoder(rate, dev)
+
+    def soft_bits(self, audio: torch.Tensor):
+        """Sync, frame slice, demodulation and deinterleave: (sync, demod,
+        codeword LLRs [B * 4, 648]), the decoder's input."""
+        sync = self.sync(audio)
+        # Undetected channels slice from 0; the start is clamped into the
+        # window as jax.lax.dynamic_slice does.
+        start = torch.clamp(torch.where(sync.detected, sync.lts_start, 0), 0,
+                            max(self.window_samples - self.need, 0))
+        frames = window_slice(audio.float(), start, self.need)
+        demod = self.demod(frames, sync.cfo_hz)
+        soft = demod.soft_bits[..., : self.num_bits][..., self.frame_idx]
+        cw_soft = soft.reshape(-1, FRAME_CODEWORDS, LDPC_BITS)
+        if self.ci_idx is not None:
+            cw_soft = cw_soft[..., self.ci_idx]
+        return sync, demod, cw_soft.reshape(-1, LDPC_BITS).contiguous()
+
+    def forward(self, audio: torch.Tensor) -> OFDMRxBatchResult:
+        B = audio.shape[0]
+        sync, demod, soft = self.soft_bits(audio)
+        factors = torch.full((soft.shape[0],), self.min_sum_factor, dtype=torch.float32,
+                             device=soft.device)
+        dec = self.decoder(soft, factors)
+        k = dec.info_bits.shape[-1]
+        return OFDMRxBatchResult(
+            detected=sync.detected,
+            lts_start=sync.lts_start,
+            cfo_hz=sync.cfo_hz,
+            cw_success=dec.success.reshape(B, FRAME_CODEWORDS) & sync.detected[:, None],
+            info_bits=dec.info_bits.reshape(B, FRAME_CODEWORDS, k),
+            iterations=dec.iterations.reshape(B, FRAME_CODEWORDS),
+            snr_db=demod.snr_db,
+        )
+
+
+def make_ofdm_rx_pipeline(cfg: OFDMConfig, rate: str, window_samples: int,
+                          ci_bits: int | None = None, min_sum_factor: float = 0.9375,
+                          device: str | torch.device = "cuda") -> OFDMRxPipeline:
+    """Batched OFDM RX on ``device`` (the card by default; ``device="cpu"``
+    for the host): audio [B, window_samples] -> OFDMRxBatchResult."""
+    return OFDMRxPipeline(cfg, rate, window_samples, ci_bits, min_sum_factor, device)
 
 
 class TxPipeline(nn.Module):

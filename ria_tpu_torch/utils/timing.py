@@ -35,3 +35,24 @@ def device_us(fn, kernel: str, reps: int = 20) -> float | None:
     events = [e for e in prof.key_averages() if kernel in e.key]
     count = sum(e.count for e in events)
     return sum(e.device_time_total for e in events) / count if count else None
+
+
+def trace_call(fn) -> tuple[int, float]:
+    """(device activities, device-busy microseconds) of one call of ``fn``,
+    from a torch.profiler trace: every kernel, copy and memset on the card,
+    and the length of the union of their intervals."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return len(spans), busy

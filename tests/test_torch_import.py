@@ -21,6 +21,8 @@ def test_port_imports_without_jax():
         "import ria_tpu_torch.tools.ldpc_bench, ria_tpu_torch.sync.chirp\n"
         "import ria_tpu_torch.tools.kernel_compare, ria_tpu_torch.utils.timing\n"
         "import ria_tpu_torch.wave.mc_dpsk, ria_tpu_torch.phy.pipeline\n"
+        "import ria_tpu_torch.fec.interleave, ria_tpu_torch.phy.frame_v2\n"
+        "import ria_tpu_torch.dsp.hilbert, ria_tpu_torch.wave.ofdm\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ria_tpu.')))\n"
         "assert not bad, bad\n"
