@@ -27,6 +27,15 @@ these phases, each printing its lines and raising on failure:
    26,160; 64 channels each) from the port's own TX: all detected,
    cw_decode_rate >= 0.95, bits equal to those sent, one K1 launch and no K2
    launch in the call, and the same chain on the CPU equal;
+4c. single-frame waveform paths (``ria_tpu_torch.tools.waveform_paths``), 64
+   channels each from the port's own TX: OTFS EQ and OTFS raw-DD (ZC sync,
+   one R1/4 codeword, window 48,000, 18 dB), DQPSK (Barker sync, window
+   194,368, 6 dB), 8-tone MFSK (sweep sync one channel at a time, window
+   696,128, -2 dB), each decoded by ``decode_batch``: detection and
+   cw_decode_rate >= 0.95, bits equal to those sent, one K1 launch and no
+   K2 launch in the call; and ZC (four roots, 48,000) with CSS (four
+   shifts, 96,000) sync at 0 dB, the frame type sent found on >= 0.95 of
+   channels; every path equal to the same path on the CPU port;
 5. A/B entry point: ``ria_tpu_torch.tools.ldpc_bench`` at its default size
    (R1/4, B = 512, -1 dB), K1, K2 and the plain decoder reporting the same
    success set and bit accuracy, with K2's launch count from that run; then
@@ -46,7 +55,11 @@ these phases, each printing its lines and raising on failure:
    chain's own 256 codewords with its bound and share; for every chain and
    for its sync and sync-to-soft-bits stages, the ms per call, the device
    kernels, copies and memsets of one call and the share of the call the
-   device is busy (profiler trace);
+   device is busy (profiler trace), and for the whole call its three
+   heaviest device kernels; for each waveform path its ms per call split
+   into sync, demod and decode (CUDA events between the stages of the same
+   calls), K1's device time on its 64 codewords with bound and share, and
+   one profiler trace of each stage and of the call;
 8. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -143,6 +156,37 @@ def bound_us(dec, kernel: str, B: int, iterations: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def staged_ms(path, audio: torch.Tensor, reps: int, windows: int = 7) -> dict:
+    """{stage: (median, min, max)} over ``windows`` windows of the
+    milliseconds per call of a waveform path's sync, demod and decode stages
+    and of the whole call, from CUDA events recorded between the stages of
+    the same ``reps`` calls."""
+    per = {stage: [] for stage in ("sync", "demod", "decode", "call")}
+    for _ in range(windows):
+        events = [[torch.cuda.Event(enable_timing=True) for _ in range(4)] for _ in range(reps)]
+        for ev in events:
+            ev[0].record()
+            sync = path.sync(audio)
+            ev[1].record()
+            demod, soft = path.demodulate(audio, sync)
+            ev[2].record()
+            path.decode(sync, demod, soft)
+            ev[3].record()
+        torch.cuda.synchronize()
+        for i, stage in enumerate(("sync", "demod", "decode")):
+            per[stage].append(sum(ev[i].elapsed_time(ev[i + 1]) for ev in events) / reps)
+        per["call"].append(sum(ev[0].elapsed_time(ev[3]) for ev in events) / reps)
+    return {stage: (float(np.median(v)), min(v), max(v)) for stage, v in per.items()}
+
+
+def top_kernels(stage: str, top: list[tuple[str, float]]) -> str:
+    """The whole call's heaviest device activities, for a trace line."""
+    if stage != "whole call":
+        return ""
+    return "; most device time: " + ", ".join(f"{name[:60]} {us / 1e3:.3f} ms"
+                                              for name, us in top)
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -163,9 +207,10 @@ def main() -> int:
     from ria_tpu_torch.fec import ldpc_kernel
     from ria_tpu_torch.fec.ldpc import ldpc_decoder
     from ria_tpu_torch.fec.ldpc_cuda import make_cuda_decoder_v1
-    from ria_tpu_torch.fec.ldpc_matrix import CODE_PARAMS, MIN_SUM_FACTOR
+    from ria_tpu_torch.fec.ldpc_matrix import CODE_PARAMS, MIN_SUM_FACTOR, RECOMMENDED_ITERS
     from ria_tpu_torch.phy.pipeline import make_ofdm_rx_pipeline, make_rx_pipeline
     from ria_tpu_torch.tools import ldpc_bench
+    from ria_tpu_torch.tools import waveform_paths as W
     from ria_tpu_torch.utils.timing import cuda_ms, device_us, trace_call
 
     # -- 2. build -------------------------------------------------------------
@@ -307,6 +352,77 @@ def main() -> int:
             raise AssertionError(f"cfo_hz or snr_db differs between the card and the CPU ({path})")
         ofdm[path] = (geom, orx, o_audio, o_launches)
 
+    # -- 4c. single-frame waveform paths --------------------------------------
+    wpaths = {}
+    for name in W.PATHS:
+        batch_w = W.make_path_batch(name, W.BATCH, seed=0, device="cpu")
+        x = tuple(t.to(dev) for t in batch_w.inputs)
+        path = W.make_path(name)
+        torch.cuda.synchronize()
+        ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
+        w_out = path(*x)
+        torch.cuda.synchronize()
+        w_launches = (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_V1)
+        w_cpu = path(*batch_w.inputs)
+        geom_w = path.geom
+        tag = (f"[4c paths] {name} B={W.BATCH} window={geom_w.window} at {geom_w.snr_db:g} dB")
+        if name == "css_zc_sync":
+            for label, got_s, want_s, col in (("ZC", w_out.zc, w_cpu.zc, 0),
+                                              ("CSS", w_out.css, w_cpu.css, 1)):
+                det = got_s.detected.cpu().numpy()
+                hit = det & (got_s.frame_type.cpu().numpy() == batch_w.frame_types[:, col])
+                corr_err = float((got_s.correlation.cpu() - want_s.correlation).abs().max())
+                log(f"{tag}: {label} detected {int(det.sum())}/{W.BATCH}, frame type sent "
+                    f"{int(hit.sum())}/{W.BATCH}; card vs CPU: max |corr err| {corr_err:.3g}")
+                for field in ("detected", "frame_type", "start_sample"):
+                    if not torch.equal(getattr(got_s, field).cpu(), getattr(want_s, field)):
+                        raise AssertionError(f"{label} {field} differs between the card and "
+                                             "the CPU")
+                if hit.mean() < 0.95 or corr_err > 1e-3:
+                    raise AssertionError(f"{label} sync: {hit.mean():.4f} < 0.95 or corr differs")
+            cfo_err = float((w_out.zc.cfo_hz.cpu() - w_cpu.zc.cfo_hz).abs().max())
+            snr_err = float((w_out.zc.snr_estimate.cpu() - w_cpu.zc.snr_estimate).abs().max())
+            log(f"{tag}: ZC card vs CPU max |cfo err| {cfo_err:.3g} Hz, |snr err| "
+                f"{snr_err:.3g} dB, K1 launches {w_launches[0]}, K2 launches {w_launches[1]}")
+            if cfo_err > 1e-3 or snr_err > 1e-3 or w_launches != (0, 0):
+                raise AssertionError("ZC cfo/snr differ between the card and the CPU, or a "
+                                     "decode ran")
+        else:
+            det = w_out.detected.cpu().numpy()
+            ok = w_out.cw_success.cpu().numpy()
+            log(f"{tag}: detected {int(det.sum())}/{W.BATCH}, cw_decode_rate {ok.mean():.4f}, "
+                f"mean iterations {w_out.iterations.float().mean():.2f}, K1 launches "
+                f"{w_launches[0]}, K2 launches {w_launches[1]}")
+            if name.startswith("otfs") and not (w_out.frame_type.cpu().numpy()[det] == 2).all():
+                raise AssertionError("the ZC sync found another frame type than DATA")
+            if not torch.isfinite(w_out.snr_db).all() or not torch.isfinite(w_out.cfo_hz).all():
+                raise AssertionError("non-finite snr_db or cfo_hz")
+            if det.mean() < 0.95 or ok.mean() < 0.95:
+                raise AssertionError(f"detected {det.mean():.4f} or cw_decode_rate {ok.mean():.4f} "
+                                     "< 0.95")
+            if not (w_out.info_bits.cpu().numpy() == batch_w.info)[ok].all():
+                raise AssertionError("decoded info bits differ from the transmitted bits")
+            if w_launches != (1, 0):
+                raise AssertionError(f"the path launched K1 {w_launches[0]} and K2 "
+                                     f"{w_launches[1]} times; 1 and 0 expected")
+            moved = (w_out.start.cpu() != w_cpu.start).nonzero().flatten().tolist()
+            for b in moved:
+                log(f"{tag}: channel {b}: start {int(w_out.start[b])} (card, score "
+                    f"{float(w_out.sync_score[b]):.9g}) vs {int(w_cpu.start[b])} (CPU, score "
+                    f"{float(w_cpu.sync_score[b]):.9g})")
+            for field in ("detected", "start", "frame_type", "cw_success"):
+                if not torch.equal(getattr(w_out, field).cpu(), getattr(w_cpu, field)):
+                    raise AssertionError(f"{field} differs between the card and the CPU ({name})")
+            errs = {field: float((getattr(w_out, field).cpu() - getattr(w_cpu, field)).abs().max())
+                    for field in ("cfo_hz", "snr_db", "soft_bits")}
+            log(f"{tag}: card vs CPU: detected/start/frame_type/cw_success equal, max |cfo err| "
+                f"{errs['cfo_hz']:.3g} Hz, |snr err| {errs['snr_db']:.3g} dB, |soft-bit err| "
+                f"{errs['soft_bits']:.3g}")
+            if errs["cfo_hz"] > 1e-3 or errs["snr_db"] > 1e-3 or errs["soft_bits"] > 2e-3:
+                raise AssertionError(f"cfo, snr or soft bits differ between the card and the CPU "
+                                     f"({name})")
+        wpaths[name] = (path, x, w_launches)
+
     # -- 5. A/B entry point ---------------------------------------------------
     log(f"[5 A/B] python -m ria_tpu_torch.tools.ldpc_bench {' '.join(BENCH_ARGS)}")
     ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
@@ -409,6 +525,35 @@ def main() -> int:
         chain_ms[path] = stage_ms
         log(f"[7 timing] {path} by stage (CUDA events, median of 7 x 10 calls): "
             + ", ".join(f"{stage} {ms:.3f} ms" for stage, ms in stage_ms.items()) + f" ({card})")
+    # Each waveform path by stage: CUDA events between sync, demodulation
+    # and decode inside the same calls, so the stages add up to the call
+    # (before any profiler run, like the chains).
+    path_stages = {}
+    for name, (path, x, _) in wpaths.items():
+        if name == "css_zc_sync":
+            fns = {"whole call": lambda p=path, x=x: p(*x)}
+            for _ in range(3):
+                fns["whole call"]()
+            whole, lo, hi = cuda_ms(fns["whole call"], 10)
+            split, stage_ms = "", {"whole call": whole}
+        else:
+            fns = {"sync": lambda p=path, x=x: p.sync(*x),
+                   "sync..soft bits": lambda p=path, x=x: p.soft_bits(*x),
+                   "whole call": lambda p=path, x=x: p(*x)}
+            for _ in range(3):
+                fns["whole call"]()
+            split_ms = staged_ms(path, x[0], 10)
+            stage_ms = {"sync": split_ms["sync"][0],
+                        "sync..soft bits": split_ms["sync"][0] + split_ms["demod"][0],
+                        "whole call": split_ms["call"][0]}
+            whole, lo, hi = split_ms["call"]
+            split = "; " + ", ".join(f"{stage} {split_ms[stage][0]:.3f} ms"
+                                     for stage in ("sync", "demod", "decode"))
+        path_stages[name] = (fns, stage_ms)
+        samples = sum(t.shape[0] * t.shape[1] for t in x)
+        log(f"[7 timing] path {name} B={W.BATCH}: median {whole:.3f} ms/call (min {lo:.3f}, max "
+            f"{hi:.3f}, 7 windows of 10 calls), {samples / whole * 1e3:.4g} samples/s{split} "
+            f"({card})")
     _, _, soft = rx.soft_bits(audio)
     dec = ldpc_decoder(RATE, None, dev)
     k2_dec = make_cuda_decoder_v1(RATE, device=dev)
@@ -481,16 +626,44 @@ def main() -> int:
             f"launches), bound {o_bound[0]:.3f} us ({o_bound[1]}), "
             f"{o_bound[0] / o_us:.2%} of it reached ({card})")
 
+    # K1 on each waveform path's own 64 header codewords.
+    path_k1 = {}
+    w_dec = ldpc_decoder(W.RATE, RECOMMENDED_ITERS[W.RATE], dev)
+    for name, (path, x, _) in wpaths.items():
+        if name == "css_zc_sync":
+            continue
+        _, _, w_soft = path.soft_bits(*x)
+        w_f = torch.full((w_soft.shape[0],), MIN_SUM_FACTOR, device=dev)
+        w_us = device_us(lambda: w_dec(w_soft, w_f), "ldpc_bp_kernel")
+        if w_us is None:
+            raise AssertionError(f"the profiler showed no device time for K1 ({name})")
+        w_iters = w_dec(w_soft, w_f).iterations
+        w_bound = bound_us(w_dec, "K1", w_soft.shape[0], int(w_iters.sum()))
+        path_k1[name] = (w_us, w_bound)
+        log(f"[7 timing] K1 on path {name} ({W.RATE}, B={w_soft.shape[0]}, mean iterations "
+            f"{w_iters.float().mean():.2f}): {w_us:.2f} us per launch (torch.profiler, 20 "
+            f"launches), bound {w_bound[0]:.3f} us ({w_bound[1]}), "
+            f"{w_bound[0] / w_us:.2%} of it reached ({card})")
+
+    # One trace of each waveform path and of its stages.
+    for name, (fns, stage_ms) in path_stages.items():
+        for stage, fn in fns.items():
+            n_dev, busy_us, top = trace_call(fn)
+            log(f"[7 timing] trace of one path {name} {stage}: {n_dev} device kernels, copies "
+                f"and memsets, {busy_us / 1e3:.3f} ms device-busy, "
+                f"{busy_us / 1e3 / stage_ms[stage]:.1%} of its {stage_ms[stage]:.3f} ms ({card})"
+                + top_kernels(stage, top))
+
     # One call of each chain and of its stages under the profiler: the device
     # kernels, copies and memsets, and the share of the stage's time the
     # device is busy.
     for path, fns in stages.items():
         for stage, fn in fns.items():
-            n_dev, busy_us = trace_call(fn)
+            n_dev, busy_us, top = trace_call(fn)
             log(f"[7 timing] trace of one {path} {stage}: {n_dev} device kernels, copies and "
                 f"memsets, {busy_us / 1e3:.3f} ms device-busy, "
                 f"{busy_us / 1e3 / chain_ms[path][stage]:.1%} of its {chain_ms[path][stage]:.3f} "
-                f"ms ({card})")
+                f"ms ({card})" + top_kernels(stage, top))
 
     # The serial floor: one codeword alone for all 50 iterations.
     ab_k1 = dec(ab_llr, ab_fac)
@@ -506,8 +679,8 @@ def main() -> int:
     # Times at the main path's 256 codewords.  ``launches`` counts the path
     # that runs each kernel (K1: the RX call; K2: the A/B entry point),
     # ``launches_per_call`` the launches per RX call of the main path, and
-    # ``launches_per_call_by_path`` those of each chain's call.  No PyTorch
-    # call computes min-sum BP, so there is no library time.
+    # ``launches_per_call_by_path`` those of each chain's and waveform path's
+    # call.  No PyTorch call computes min-sum BP, so there is no library time.
     main_times = times["B=256 main path"]
     kernels = []
     for i, (name, source, replaces, n_launch, per_call) in enumerate((
@@ -518,6 +691,7 @@ def main() -> int:
         ms, plain_ms, dev_us, (b_us, b_by) = main_times[name]
         by_path = {"mc_dpsk": per_call}
         by_path.update({path: run[3][i] for path, run in ofdm.items()})
+        by_path.update({path: run[2][i] for path, run in wpaths.items()})
         kernels.append({
             "name": "ldpc_bp" if name == "K1" else "ldpc_bp_v1", "route": "cuda",
             "source": source, "replaces": replaces, "launches": n_launch,
@@ -525,6 +699,9 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": ms,
             "plain_ms": plain_ms, "device_us": dev_us, "bound_us": b_us,
             "bound_ms": b_us / 1e3, "bound_by": b_by, "library_ms": None})
+    # K1's device time and bound on each waveform path's 64 codewords.
+    kernels[0]["device_us_by_path"] = {path: t[0] for path, t in path_k1.items()}
+    kernels[0]["bound_us_by_path"] = {path: t[1][0] for path, t in path_k1.items()}
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

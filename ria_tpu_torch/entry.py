@@ -12,18 +12,22 @@ of 10-carrier DBPSK, R1/4, 4 codewords per frame, a window of
 ``_ofdm_case`` and ``_coherent_case``, its chains 2 and 3: the north-star
 configurations #3 (OFDM DQPSK R1/2 at 15 dB) and #4 (OFDM-COX QAM64 R3/4 at
 25 dB), fixed 4-codeword frames built by the port's own TX.
+
+``bench_batches`` draws every batch bench.py times, from one generator in
+the order of bench.py's ``main()``.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ria_tpu_torch.fec.ldpc import make_encoder
 from ria_tpu_torch.fec.interleave import FRAME_CODEWORDS
-from ria_tpu_torch.fec.ldpc_matrix import get_code
+from ria_tpu_torch.fec.ldpc_matrix import encode_np, get_code
 from ria_tpu_torch.phy.frame_v2 import encode_fixed_frame
 from ria_tpu_torch.phy.pipeline import LDPC_BITS, make_rx_pipeline, make_tx_pipeline
 from ria_tpu_torch.sync.chirp import ChirpConfig
@@ -54,18 +58,19 @@ def geometry(production: bool = False) -> tuple[MCDPSKConfig, int, int, int]:
 
 def _make_batch(cfg: MCDPSKConfig, num_codewords: int, batch: int, window: int,
                 seed: int = 0, production: bool = False,
-                device: str | torch.device = "cuda") -> tuple[torch.Tensor, np.ndarray]:
+                device: str | torch.device = "cuda",
+                rng: np.random.Generator | None = None) -> tuple[torch.Tensor, np.ndarray]:
     """TX a batch of frames (encoded random R1/4 codewords) into audio windows.
 
     Returns (audio [batch, window] f32 on ``device``, info bits
-    [batch, num_codewords, k] uint8).  All randomness comes from
-    ``np.random.default_rng(seed)``, drawn in the order of the reference's
-    batch builders: info bits, then (production) one lead per channel, then
-    the noise.  Tiny batches sit at lead 256 under N(0, 0.02) noise;
-    production batches at leads in [0, 8000) under 10 dB AWGN.
+    [batch, num_codewords, k] uint8).  All randomness comes from ``rng``
+    (default ``np.random.default_rng(seed)``), drawn in the order of the
+    reference's batch functions: info bits, then (production) one lead per
+    channel, then the noise.  Tiny batches sit at lead 256 under N(0, 0.02)
+    noise; production batches at leads in [0, 8000) under 10 dB AWGN.
     """
     dev = resolve_device(device)
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(seed) if rng is None else rng
     k = get_code(RATE).k
     info = rng.integers(0, 2, size=(batch * num_codewords, k)).astype(np.uint8)
     coded = make_encoder(RATE, dev)(torch.as_tensor(info, device=dev))
@@ -133,19 +138,20 @@ def ofdm_geometry(config: int) -> OFDMGeometry:
 
 
 def _make_ofdm_batch(geom: OFDMGeometry, batch: int | None = None, seed: int = 0,
-                     device: str | torch.device = "cuda") -> tuple[torch.Tensor, np.ndarray]:
+                     device: str | torch.device = "cuda",
+                     rng: np.random.Generator | None = None) -> tuple[torch.Tensor, np.ndarray]:
     """TX a batch of fixed 4-codeword OFDM frames into audio windows.
 
     Returns (audio [batch, window] f32 on ``device``, the sent info bits
-    [batch, 4, k] uint8).  All randomness comes from
-    ``np.random.default_rng(seed)`` in bench.py's order: per channel the
+    [batch, 4, k] uint8).  All randomness comes from ``rng`` (default
+    ``np.random.default_rng(seed)``) in bench.py's order: per channel the
     payload bytes, then its lead; then the noise over the whole batch, whose
     sigma follows the LAST channel's TX rms, as bench.py's does.  The TX is
     host numpy; ``batch`` defaults to the geometry's.
     """
     dev = resolve_device(device)
     batch = geom.batch if batch is None else batch
-    rng = np.random.default_rng(seed)
+    rng = np.random.default_rng(seed) if rng is None else rng
     k = get_code(geom.rate).k
     bpc = k // 8
     audio = np.zeros((batch, geom.window), np.float32)
@@ -161,3 +167,62 @@ def _make_ofdm_batch(geom: OFDMGeometry, batch: int | None = None, seed: int = 0
         info[b, :, : 8 * bpc] = bytes_to_bits(payload).reshape(FRAME_CODEWORDS, 8 * bpc)
     audio += rng.normal(0, rms * 10 ** (-geom.snr_db / 20), audio.shape).astype(np.float32)
     return torch.as_tensor(audio, device=dev), info
+
+
+# bench.py's noisy copies of each batch: six of each chain's audio under
+# N(0, 1e-4) (bench.py:77, 110, 147) and four of the LDPC batch's LLRs under
+# N(0, 0.05) (bench.py:183-185).
+BENCH_VARIANTS = 6
+BENCH_VARIANT_SIGMA = 1e-4
+LDPC_BENCH_BATCH = 512
+LDPC_BENCH_VARIANTS = 4
+LDPC_BENCH_VARIANT_SIGMA = 0.05
+
+
+class BenchChain(NamedTuple):
+    """One of bench.py's batches: its noisy copies (the tensors bench.py
+    times, on the device) and the info bits sent."""
+
+    variants: list[torch.Tensor]
+    info: np.ndarray
+
+
+class BenchBatches(NamedTuple):
+    mc_dpsk: BenchChain          # chain 1: audio [64, 207328], info [64, 4, 162]
+    ofdm_dqpsk_r12: BenchChain   # chain 2: audio [64, 42720], info [64, 4, 324]
+    ofdm_qam64_r34: BenchChain   # chain 3: audio [64, 26160], info [64, 4, 486]
+    ldpc: BenchChain             # R1/4 LLRs [512, 648], info [512, 162]
+
+
+def _noisy_copies(x: torch.Tensor, rng: np.random.Generator, count: int,
+                  sigma: float) -> list[torch.Tensor]:
+    return [x + torch.as_tensor(rng.normal(0, sigma, tuple(x.shape)).astype(np.float32),
+                                device=x.device) for _ in range(count)]
+
+
+def bench_batches(device: str | torch.device = "cuda") -> BenchBatches:
+    """bench.py's batches, drawn as its ``main()`` draws them: ONE
+    ``np.random.default_rng(0)`` runs through chain 1 (``_mc_dpsk_case``:
+    info bits, 64 leads, noise) and its six variants, chain 2
+    (``_ofdm_case``) and its six, chain 3 (``_coherent_case``) and its six,
+    then the LDPC batch of ``_ldpc_metrics`` (info bits, noise at sigma 1.0
+    with the second half of the rows at 2.6, four variants).  The port's TX
+    builds every frame."""
+    dev = resolve_device(device)
+    rng = np.random.default_rng(0)
+    cfg, ncw, batch, window = geometry(production=True)
+    audio, info = _make_batch(cfg, ncw, batch, window, production=True, device=dev, rng=rng)
+    chains = [BenchChain(_noisy_copies(audio, rng, BENCH_VARIANTS, BENCH_VARIANT_SIGMA), info)]
+    for config in (3, 4):
+        audio, info = _make_ofdm_batch(ofdm_geometry(config), device=dev, rng=rng)
+        chains.append(BenchChain(_noisy_copies(audio, rng, BENCH_VARIANTS, BENCH_VARIANT_SIGMA),
+                                 info))
+    B = LDPC_BENCH_BATCH
+    info = rng.integers(0, 2, (B, get_code(RATE).k)).astype(np.uint8)
+    llr = (1.0 - 2.0 * encode_np(info, RATE).astype(np.float32)) * 4.0
+    noise = rng.normal(0, 1.0, llr.shape).astype(np.float32)
+    noise[B // 2 :] = rng.normal(0, 2.6, (B // 2, LDPC_BITS)).astype(np.float32)
+    llr = torch.as_tensor(llr + noise, device=dev)
+    chains.append(BenchChain(_noisy_copies(llr, rng, LDPC_BENCH_VARIANTS,
+                                           LDPC_BENCH_VARIANT_SIGMA), info))
+    return BenchBatches(*chains)

@@ -24,7 +24,7 @@ from ria_tpu_torch.fec.interleave import FRAME_CODEWORDS, channel_perm, frame_pe
 from ria_tpu_torch.fec.ldpc import LDPCDecoder, ldpc_decoder
 from ria_tpu_torch.fec.ldpc_matrix import RECOMMENDED_ITERS
 from ria_tpu_torch.sync.chirp import ChirpDetector, window_slice, generate as chirp_generate
-from ria_tpu_torch.utils.device import resolve_device
+from ria_tpu_torch.utils.device import full_fp32_matmul, resolve_device
 from ria_tpu_torch.wave.mc_dpsk import (
     MCDPSKConfig,
     MCDPSKDemodulator,
@@ -46,11 +46,30 @@ class RxBatchResult(NamedTuple):
     snr_db: torch.Tensor      # [B]
 
 
-def _full_fp32_matmul() -> None:
-    # Keep float32 and complex64 matmuls (mixer bank, chirp refinement, TX
-    # synthesis) in full precision on the card: TF32 keeps ~3 decimal digits
-    # and would cost the soft bits their parity with the reference.
-    torch.backends.cuda.matmul.allow_tf32 = False
+# Block length of the compiled reference's float32 cumulative sum on the CPU.
+_XLA_SCAN_BLOCK = 16
+
+
+def _xla_cumsum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Inclusive cumulative sum along ``dim`` in the order of the reference's
+    compiled ``jnp.cumsum`` on the CPU: sequential float32 sums within
+    blocks of 16, the block totals scanned the same way, then added.
+    (``torch.cumsum`` accumulates in double on the CPU; over the ~260 symbol
+    phases of a TX frame, up to ~800 rad, the two differ by ulps of the
+    phase, 3e-5 of the audio.)"""
+    x = x.movedim(dim, -1)
+    n, b = x.shape[-1], _XLA_SCAN_BLOCK
+    nb = -(-n // b)
+    xp = nn.functional.pad(x, (0, nb * b - n)).reshape(x.shape[:-1] + (nb, b))
+    cols = [xp[..., 0]]
+    for i in range(1, b):
+        cols.append(cols[-1] + xp[..., i])
+    pre = torch.stack(cols, dim=-1)
+    if nb > 1:
+        totals = _xla_cumsum(pre[..., -1], -1)
+        before = torch.cat([torch.zeros_like(totals[..., :1]), totals[..., :-1]], dim=-1)
+        pre = pre + before[..., None]
+    return pre.reshape(x.shape[:-1] + (nb * b,))[..., :n].movedim(-1, dim)
 
 
 def _pick_decoder(rate: str, device: torch.device) -> LDPCDecoder:
@@ -67,7 +86,7 @@ class RxPipeline(nn.Module):
                  device: str | torch.device = "cuda"):
         super().__init__()
         dev = resolve_device(device)
-        _full_fp32_matmul()
+        full_fp32_matmul()
         self.cfg = cfg
         self.num_codewords = num_codewords
         self.window_samples = window_samples
@@ -141,7 +160,7 @@ class OFDMRxPipeline(nn.Module):
                  device: str | torch.device = "cuda"):
         super().__init__()
         dev = resolve_device(device)
-        _full_fp32_matmul()
+        full_fp32_matmul()
         self.cfg = cfg
         self.window_samples = window_samples
         self.min_sum_factor = min_sum_factor
@@ -205,7 +224,7 @@ class TxPipeline(nn.Module):
                  device: str | torch.device = "cuda"):
         super().__init__()
         dev = resolve_device(device)
-        _full_fp32_matmul()
+        full_fp32_matmul()
         self.cfg = cfg
         self.num_bits = num_codewords * LDPC_BITS
         self.n_sym = cfg.num_data_symbols(self.num_bits)
@@ -228,7 +247,7 @@ class TxPipeline(nn.Module):
             dphi = self.dqpsk_phases[val]
         else:
             dphi = grouped[..., 0] * np.pi
-        phase = torch.cumsum(dphi, dim=1)
+        phase = _xla_cumsum(dphi, dim=1)
         symbols = torch.polar(torch.ones((), device=bits.device), phase)  # [B, S, C]
         ref = torch.ones((B, 1, cfg.num_carriers), dtype=torch.complex64, device=bits.device)
         tr = self.train_syms.expand((B,) + tuple(self.train_syms.shape))

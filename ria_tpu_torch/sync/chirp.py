@@ -373,7 +373,15 @@ class ChirpDetector(nn.Module):
         return self._decide(up_pos, up_val, up_cfar, down_pos, down_val)
 
 
+@functools.lru_cache(maxsize=64)
+def chirp_detector(cfg: ChirpConfig, num_samples: int,
+                   device: str | torch.device = "cuda") -> ChirpDetector:
+    """Cached :class:`ChirpDetector` for a (config, window, device): the
+    reference compiles ``detect_dual_chirp`` once per static configuration."""
+    return ChirpDetector(cfg, num_samples, device)
+
+
 def detect_dual_chirp(samples: torch.Tensor, cfg: ChirpConfig) -> ChirpSyncResult:
     """Detect the dual-chirp preamble in a fixed-size window (batched over
     leading axes), on the samples' device."""
-    return ChirpDetector(cfg, samples.shape[-1], samples.device)(samples)
+    return chirp_detector(cfg, samples.shape[-1], samples.device)(samples)

@@ -14,3 +14,11 @@ def resolve_device(device: str | torch.device) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def full_fp32_matmul() -> None:
+    """Keep float32 and complex64 matmuls (mixer banks, tone banks, chirp
+    refinement, TX synthesis) in full precision on the card: TF32 keeps ~3
+    decimal digits and would cost the soft bits their parity with the
+    reference."""
+    torch.backends.cuda.matmul.allow_tf32 = False

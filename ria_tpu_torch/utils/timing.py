@@ -37,10 +37,11 @@ def device_us(fn, kernel: str, reps: int = 20) -> float | None:
     return sum(e.device_time_total for e in events) / count if count else None
 
 
-def trace_call(fn) -> tuple[int, float]:
-    """(device activities, device-busy microseconds) of one call of ``fn``,
-    from a torch.profiler trace: every kernel, copy and memset on the card,
-    and the length of the union of their intervals."""
+def trace_call(fn, top: int = 3) -> tuple[int, float, list[tuple[str, float]]]:
+    """(device activities, device-busy microseconds, the ``top`` activity
+    names by device microseconds summed over the call) of one call of
+    ``fn``, from a torch.profiler trace: every kernel, copy and memset on
+    the card, and the length of the union of their intervals."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -48,11 +49,14 @@ def trace_call(fn) -> tuple[int, float]:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
+    device = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     busy, end = 0.0, float("-inf")
     for lo, hi in spans:
         if hi > end:
             busy += hi - max(lo, end)
             end = hi
-    return len(spans), busy
+    by_name: dict[str, float] = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
+    return len(spans), busy, sorted(by_name.items(), key=lambda kv: -kv[1])[:top]

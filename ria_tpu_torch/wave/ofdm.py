@@ -28,7 +28,9 @@ The TX and the tables are host numpy, copied from the reference so the
 constants match bit for bit.  The RX stages are modules whose constants are
 buffers: :class:`SchmidlCoxDetector`, :class:`LTSDetector` and
 :class:`OFDMDemodulator`; each is also reachable through a function of the
-reference's name.  Whole frames are demodulated at once: every symbol
+reference's name, which builds its module once per static configuration
+(config, window or symbol counts, device) and caches it, as the reference
+compiles once per ``static_argnames``.  Whole frames are demodulated at once: every symbol
 CP-stripped and FFT'd in one batch (cuFFT on the card), equalized with a
 broadcast H and demapped elementwise.  The per-carrier EMA chains are
 first-order linear recurrences, computed as a log-depth prefix over their
@@ -552,10 +554,17 @@ class SchmidlCoxDetector(nn.Module):
         )
 
 
+@functools.lru_cache(maxsize=64)
+def schmidl_cox_detector(cfg: OFDMConfig, num_samples: int,
+                         device: str | torch.device = "cuda") -> SchmidlCoxDetector:
+    """Cached :class:`SchmidlCoxDetector` for a (config, window, device)."""
+    return SchmidlCoxDetector(cfg, num_samples, device)
+
+
 def schmidl_cox_search(samples: torch.Tensor, cfg: OFDMConfig) -> SCSyncResult:
     """Find the preamble in a window (batched over leading axes), on the
     samples' device."""
-    return SchmidlCoxDetector(cfg, samples.shape[-1], samples.device)(samples)
+    return schmidl_cox_detector(cfg, samples.shape[-1], samples.device)(samples)
 
 
 # ============================================================================
@@ -674,10 +683,17 @@ class LTSDetector(nn.Module):
         return LTSSyncResult(det, torch.where(det, pos, -1).to(torch.int32), val, cfo, repeats)
 
 
+@functools.lru_cache(maxsize=64)
+def lts_detector(cfg: OFDMConfig, num_samples: int, threshold: float = 0.5,
+                 device: str | torch.device = "cuda") -> LTSDetector:
+    """Cached :class:`LTSDetector` for a (config, window, threshold, device)."""
+    return LTSDetector(cfg, num_samples, threshold, device)
+
+
 def lts_search(samples: torch.Tensor, cfg: OFDMConfig, threshold: float = 0.5) -> LTSSyncResult:
     """Find an LTS training symbol in a window (batched over leading axes),
     on the samples' device."""
-    return LTSDetector(cfg, samples.shape[-1], threshold, samples.device)(samples)
+    return lts_detector(cfg, samples.shape[-1], threshold, samples.device)(samples)
 
 
 # ============================================================================
@@ -1055,13 +1071,20 @@ class OFDMDemodulator(nn.Module):
         return torch.stack(llrs, dim=-3), torch.stack(eqs, dim=-2)
 
 
+@functools.lru_cache(maxsize=64)
+def ofdm_demodulator(cfg: OFDMConfig, num_data_symbols: int, training_symbols: int = 2,
+                     device: str | torch.device = "cuda") -> OFDMDemodulator:
+    """Cached :class:`OFDMDemodulator` for a (config, symbol counts, device)."""
+    return OFDMDemodulator(cfg, num_data_symbols, training_symbols, device)
+
+
 def demodulate_presynced(samples: torch.Tensor, cfo_hz: torch.Tensor, cfg: OFDMConfig,
                          num_data_symbols: int, training_symbols: int = 2) -> OFDMDemodResult:
     """Demodulate [T training LTS + S data] symbols starting at the first
     LTS, on the samples' device.  samples: [..., (T+S)*symbol_samples]
     passband audio; CFO is removed by a complex downmix at fc + cfo."""
-    return OFDMDemodulator(cfg, num_data_symbols, training_symbols,
-                           samples.device)(samples, cfo_hz)
+    return ofdm_demodulator(cfg, num_data_symbols, training_symbols,
+                            samples.device)(samples, cfo_hz)
 
 
 def demodulate_from_bins(Y_data: torch.Tensor, Y_pilot: torch.Tensor | None,
@@ -1069,5 +1092,5 @@ def demodulate_from_bins(Y_data: torch.Tensor, Y_pilot: torch.Tensor | None,
                          training_symbols: int = 2) -> OFDMDemodResult:
     """Demod back half from the per-symbol carrier bins Y [..., T+S, D]
     (continuous-downmix convention of :func:`demodulate_presynced`)."""
-    return OFDMDemodulator(cfg, num_data_symbols, training_symbols,
-                           Y_data.device).from_bins(Y_data, Y_pilot)
+    return ofdm_demodulator(cfg, num_data_symbols, training_symbols,
+                            Y_data.device).from_bins(Y_data, Y_pilot)

@@ -9,12 +9,15 @@ import numpy as np
 import pytest
 import torch
 
-from ria_tpu_torch.entry import RATE, _make_ofdm_batch, entry, geometry, ofdm_geometry
+from ria_tpu_torch.entry import (RATE, _make_ofdm_batch, bench_batches, entry, geometry,
+                                 ofdm_geometry)
 from ria_tpu_torch.fec import ldpc as T
 from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.phy import frame_v2
 from ria_tpu_torch.phy.pipeline import make_ofdm_rx_pipeline, make_rx_pipeline, make_tx_pipeline
-from ria_tpu_torch.wave import ofdm
+from ria_tpu_torch.sync import css, zc
+from ria_tpu_torch.tools import waveform_paths
+from ria_tpu_torch.wave import dpsk, mfsk, ofdm, otfs
 
 torch.set_num_threads(1)
 
@@ -58,6 +61,16 @@ CALLS = {
     "OFDMDemodulator": lambda: ofdm.OFDMDemodulator(CFG3, 4).t,
     "decode_fixed_frame": _decode_fixed_frame,
     "decode_codewords": lambda: frame_v2.decode_codewords(np.zeros((1, 648), np.float32))[0],
+    "bench_batches": lambda: bench_batches().ldpc.variants[0],
+    "ZCDetector": lambda: zc.ZCDetector(zc.ZCConfig(), 9000).tmpl_fft,
+    "zc_detector": lambda: zc.zc_detector(zc.ZCConfig(), 9000).t,
+    "CSSDetector": lambda: css.CSSDetector(css.CSSConfig(), 60000).tmpl_fft,
+    "BarkerDetector": lambda: dpsk.BarkerDetector(dpsk.DPSKConfig(), 90000).mixer,
+    "DPSKDemodulator": lambda: dpsk.DPSKDemodulator(dpsk.DPSKConfig(), 64).mixer,
+    "MFSKPreambleDetector": lambda: mfsk.MFSKPreambleDetector(mfsk.MFSKConfig(), 40000).bank,
+    "MFSKDemodulator": lambda: mfsk.MFSKDemodulator(mfsk.MFSKConfig(), 48).bank,
+    "OTFSDemodulator": lambda: otfs.OTFSDemodulator(otfs.OTFSConfig()).t,
+    "make_path_batch": lambda: waveform_paths.make_path_batch("otfs_eq", 1).inputs[0],
 }
 
 

@@ -23,6 +23,9 @@ def test_port_imports_without_jax():
         "import ria_tpu_torch.wave.mc_dpsk, ria_tpu_torch.phy.pipeline\n"
         "import ria_tpu_torch.fec.interleave, ria_tpu_torch.phy.frame_v2\n"
         "import ria_tpu_torch.dsp.hilbert, ria_tpu_torch.wave.ofdm\n"
+        "import ria_tpu_torch.fec.chase, ria_tpu_torch.sync.zc, ria_tpu_torch.sync.css\n"
+        "import ria_tpu_torch.wave.dpsk, ria_tpu_torch.wave.mfsk, ria_tpu_torch.wave.otfs\n"
+        "import ria_tpu_torch.tools.waveform_paths\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ria_tpu.')))\n"
         "assert not bad, bad\n"
