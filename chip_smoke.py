@@ -36,6 +36,18 @@ these phases, each printing its lines and raising on failure:
    K2 launch in the call; and ZC (four roots, 48,000) with CSS (four
    shifts, 96,000) sync at 0 dB, the frame type sent found on >= 0.95 of
    channels; every path equal to the same path on the CPU port;
+4d. waveform API and CLI (``ria_tpu_torch.wave.api``, ``ria_tpu_torch.cli``),
+   one frame a call with the default device: the 11 captures of the
+   reference C++ modem in tests/golden/interop through
+   ``create_waveform(...).rx_frame`` (full, then light) byte for byte, and
+   ``ref_ping.f32`` through ``cli.main(["prx", ...])``; ``ptx`` -> ``prx``
+   loopbacks through ``cli.main`` (auto-detected MC_DPSK, OFDM_CHIRP,
+   OFDM_COX, OTFS_EQ; ``-w`` given for OTFS_RAW, DPSK, MFSK; ``connect`` and
+   ``ping``); an OFDM 4-frame burst and an AFDM frame with 5 Hz CFO through
+   the API; one clean frame per waveform class.  Every result equal to the
+   same call with ``device="cpu"`` (ok, bytes, header, flags and start
+   exact; CFO and SNR within 1e-3; soft bits within 2e-3), at least one K1
+   launch and no K2 launch per ``rx_frame``, the counts printed per waveform;
 5. A/B entry point: ``ria_tpu_torch.tools.ldpc_bench`` at its default size
    (R1/4, B = 512, -1 dB), K1, K2 and the plain decoder reporting the same
    success set and bit accuracy, with K2's launch count from that run; then
@@ -59,7 +71,12 @@ these phases, each printing its lines and raising on failure:
    heaviest device kernels; for each waveform path its ms per call split
    into sync, demod and decode (CUDA events between the stages of the same
    calls), K1's device time on its 64 codewords with bound and share, and
-   one profiler trace of each stage and of the call;
+   one profiler trace of each stage and of the call; for each waveform
+   class the ms per ``rx_frame`` of its clean frame (host clock, the card
+   synchronised, second and later calls of a length), the first and second
+   ``prx`` of a new recording length (module build against call), and for
+   MC-DPSK and OFDM_CHIRP one trace of a ``rx_frame``: device kernels, busy
+   share, host-device synchronisations and copies;
 8. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -68,9 +85,13 @@ Any failure ends the run with a non-zero exit code and no result line.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -79,6 +100,7 @@ import torch
 RATES_SIGMA = {"R1_4": 2.4, "R1_2": 1.8, "R2_3": 1.5, "R3_4": 1.4, "R5_6": 1.4}
 FACTORS = np.array([0.9375, 0.875, 0.75, 0.625, 0.5], np.float32)
 LLR_ATOL = 1e-3
+DRIFT_AFTER = 5  # iterations past which a wrong candidate's row may drift (phase 4d)
 MIXED_MAX_FLIPS = 0.01  # share of rows of the B = 512 mixed batch
 BENCH_ARGS = ["--rate", "R1_4", "--batch", "512", "--snr-db", "-1", "--reps", "20"]
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W limit).
@@ -138,6 +160,14 @@ def compare(ref, got):
     return int(bad.sum()), max_err
 
 
+def iteration_counts(iterations: list[int]) -> str:
+    """A batch's iteration counts: the list itself up to 8 rows, else
+    {count: rows}."""
+    if len(iterations) <= 8:
+        return str(iterations)
+    return str({n: iterations.count(n) for n in sorted(set(iterations))})
+
+
 def bound_us(dec, kernel: str, B: int, iterations: int) -> tuple[float, str]:
     """(least microseconds, the side that binds) for one launch of ``kernel``
     on B codewords of ``dec``'s code that need ``iterations`` codeword-
@@ -187,6 +217,335 @@ def top_kernels(stage: str, top: list[tuple[str, float]]) -> str:
                                               for name, us in top)
 
 
+def run_cli(argv: list[str]) -> tuple[int, str, str]:
+    """(return code, stdout, stderr) of ``ria_tpu_torch.cli.main(argv)``."""
+    from ria_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, out.getvalue(), err.getvalue()
+
+
+def waveform_api_phase(dev: torch.device) -> dict:
+    """Phase 4d.  Returns {"frames": {class: (its rx_frame call, waveform,
+    audio)}, "launches": {label: (K1, K2) of one rx_frame or prx},
+    "codewords": the MC-DPSK clean frame's LLRs [4, 648], "noisy_codewords":
+    those of the MC-DPSK frame near its decode floor, "k1_err": the largest
+    |llr| error of a K1 call of this phase against the plain decoder} for
+    the timing phase and the kernels line.
+
+    Every K1 call of every rx_frame, rx_burst and prx here is held against
+    the plain decoder on the call's own LLRs and factors: the header peek
+    and the control frames at B = 1, the bodies at B = total_cw and B = 4."""
+    from ria_tpu_torch.phy.frame_v2 import WaveformMode, make_fixed_data_frame
+    from ria_tpu_torch.tools import waveform_frames as F
+    from ria_tpu_torch.wave.api import create_waveform
+
+    launches: dict[str, tuple[int, int]] = {}
+    k1_held: list[dict] = []
+
+    def hold_k1(tag: str, calls, k1: int, drift_after: int | None = None) -> str:
+        """The call's K1 launches against the plain decoder; a summary."""
+        if len(calls) != k1:
+            raise AssertionError(f"{tag}: {k1} K1 launches, {len(calls)} of them recorded")
+        rows = F.hold_k1_calls(calls, tag, drift_after)
+        k1_held.extend(rows)
+        if not rows:
+            return "K1 vs plain: no launch"
+        drifted = [d for r in rows for d in r["drifted"]]
+        return "K1 vs plain: " + ", ".join(
+            f"B={r['B']} k={r['k']} iterations {iteration_counts(r['iterations'])} max |llr err| "
+            f"{r['max_abs_err']:.3g}" for r in rows) + ", no row's outcome differing" + (
+                "" if not drifted else
+                f"; {len(drifted)} rows of the wrong candidates' retry ladders with equal bits "
+                f"after equal iterations ({min(d[1] for d in drifted)}-"
+                f"{max(d[1] for d in drifted)}, all over {drift_after}) and posteriors up to "
+                f"{max(d[2] for d in drifted):.3g} apart")
+
+    def held(tag: str, card_call, cpu_call, check, key: str | None = None):
+        """One rx_frame on the card, counted, checked, and held against the
+        CPU's; its launches are kept under ``key`` (default the tag)."""
+        got, k1, k2, calls = F.counted_k1(card_call)
+        check(got)
+        errs = F.same_rx(got, cpu_call(), tag)
+        launches[key or tag] = (k1, k2)
+        k1_vs_plain = hold_k1(tag, calls, k1)
+        log(f"[4d api] {tag}: ok, start {got.start_sample}, cfo {got.cfo_hz:.3f} Hz, snr "
+            f"{got.snr_db:.2f} dB, K1 launches {k1}, K2 launches {k2}; card vs CPU: bytes/header/"
+            f"flags/start equal, |cfo err| {errs['cfo_hz']:.3g} Hz, |snr err| "
+            f"{errs['snr_db']:.3g} dB, |soft-bit err| {errs['soft_bits']:.3g}; {k1_vs_plain}")
+        if k1 < 1 or k2:
+            raise AssertionError(f"{tag}: K1 launches {k1}, K2 launches {k2}")
+        return got
+
+    # The reference modem's captures, with the default device.
+    for fixture, mode, mod, rate in F.CAPTURES:
+        audio = F.capture(fixture)
+        wf = create_waveform(WaveformMode[mode], mod, rate)
+        if wf.device.type != "cuda":
+            raise AssertionError("create_waveform's default device is not the card")
+        cpu_wf = create_waveform(WaveformMode[mode], mod, rate, device="cpu")
+        held(f"capture {fixture} ({len(audio)} samples)",
+             lambda: F.rx_full_then_light(wf, audio), lambda: F.rx_full_then_light(cpu_wf, audio),
+             lambda rx: F.check_capture_frame(rx, fixture), key=f"capture {fixture}")
+    ping = str(F.CAPTURE_DIR / F.PING_CAPTURE)
+    (rc, out, _), k1, k2, calls = F.counted_k1(lambda: run_cli(["prx", ping, "-w", "MC_DPSK"]))
+    log(f"[4d api] prx {F.PING_CAPTURE} -w MC_DPSK: rc {rc}, {out.strip()!r}, K1 launches {k1}, "
+        f"K2 launches {k2}; {hold_k1('prx of the PING capture', calls, k1)}")
+    if rc != 0 or "type=PING" not in out or k2:
+        raise AssertionError("the reference's PING capture was not read as a PING")
+    if run_cli(["--device", "cpu", "prx", ping, "-w", "MC_DPSK"])[:2] != (rc, out):
+        raise AssertionError("prx of the PING capture differs between the card and the CPU")
+
+    # ptx -> prx through the command line, with the default device.
+    with tempfile.TemporaryDirectory() as tmp:
+        loops = [(w, f"loopback {w}", []) for w in ("MC_DPSK", "OFDM_CHIRP", "OFDM_COX", "OTFS_EQ")]
+        loops += [(w, f"loopback {w}", ["-w", w]) for w in ("OTFS_RAW", "DPSK", "MFSK")]
+        loops += [("MC_DPSK", "connect", []), ("MC_DPSK", "ping", [])]
+        for wfn, text, given in loops:
+            path = os.path.join(tmp, f"{wfn}_{text.split()[0]}.f32")
+            rc, _, err = run_cli(["ptx", text, "-s", "W1AW", "-d", "VE3ABC", "-w", wfn,
+                                  "-o", path])
+            if rc != 0:
+                raise AssertionError(f"ptx {text!r} -w {wfn}: rc {rc}: {err}")
+            (rc, out, err), k1, k2, calls = F.counted_k1(
+                lambda: run_cli(["prx", path] + given))
+            tag = f"prx of ptx {text!r} -w {wfn}" + ("" if given else " (auto-detect)")
+            launches[tag] = (k1, k2)
+            # Auto-detect feeds K1 the soft bits of candidates that are not
+            # the frame's waveform: only there may a row drift (see
+            # waveform_frames.hold_k1_calls).
+            k1_vs_plain = hold_k1(tag, calls, k1, drift_after=None if given else DRIFT_AFTER)
+            want = {"connect": "type=CONNECT src=W1AW dst=VE3ABC", "ping": "type=PING"}.get(
+                text, text)
+            log(f"[4d api] {tag}: rc {rc}, {out.strip().splitlines()[:2]}, "
+                f"{err.strip().splitlines()[-1]!r}, K1 launches {k1}, K2 launches {k2}; "
+                f"{k1_vs_plain}")
+            if rc != 0 or want not in out or k2 or (text != "ping" and k1 < 1):
+                raise AssertionError(f"{tag} failed: {out!r}")
+            if not given and text.startswith("loopback") and f"waveform={wfn}" not in err:
+                raise AssertionError(f"{tag}: auto-detect announced {err!r}")
+            rc_c, out_c, _ = run_cli(["--device", "cpu", "prx", path] + given)
+            # The last line's snr/cfo are printed to one decimal: the frames
+            # themselves are held to the CPU's below, the other lines here.
+            if rc_c != rc or out_c.splitlines()[:-1] != out.splitlines()[:-1]:
+                raise AssertionError(f"{tag} differs between the card and the CPU")
+
+    # The OFDM burst and AFDM through the API.
+    wf = create_waveform(WaveformMode.OFDM_CHIRP, "DQPSK", "R1_2")
+    cpu_wf = create_waveform(WaveformMode.OFDM_CHIRP, "DQPSK", "R1_2", device="cpu")
+    frames = [make_fixed_data_frame("W1AW", "VE3ABC", i, f"burst frame {i}".encode(),
+                                    "R1_2").serialize() for i in range(4)]
+    audio = F.awgn(wf.tx_burst(frames), 15.0, seed=8)
+    (got, snr, fading), k1, k2, calls = F.counted_k1(lambda: wf.rx_burst(audio, group=4))
+    want, snr_c, fading_c = cpu_wf.rx_burst(audio, group=4)
+    launches["rx_burst OFDM_CHIRP group 4"] = (k1, k2)
+    log(f"[4d api] rx_burst OFDM_CHIRP DQPSK R1/2, 4 frames: {sum(ok for ok, _ in got)}/4 frames, "
+        f"snr {snr:.2f} dB, K1 launches {k1}, K2 launches {k2}; card vs CPU: frames equal, "
+        f"|snr err| {abs(snr - snr_c):.3g} dB, |fading err| {abs(fading - fading_c):.3g}; "
+        f"{hold_k1('rx_burst', calls, k1)}")
+    if got != want or [fb for _, fb in got] != frames or k1 < 1 or k2:
+        raise AssertionError("the OFDM burst on the card")
+    if abs(snr - snr_c) > F.RX_TOL or abs(fading - fading_c) > F.RX_TOL:
+        raise AssertionError("the OFDM burst's snr or fading differs between the card and the CPU")
+    afdm = create_waveform(WaveformMode.AFDM)
+    cpu_afdm = create_waveform(WaveformMode.AFDM, device="cpu")
+    fb = F.control_frame_bytes()
+    audio = F.awgn(afdm.tx_frame(fb, tx_cfo_hz=5.0), 10.0, seed=9)
+    (ok, got_fb, info), k1, k2, calls = F.counted_k1(lambda: afdm.rx_frame(audio))
+    ok_c, fb_c, info_c = cpu_afdm.rx_frame(audio)
+    launches["AFDMWaveform"] = (k1, k2)
+    log(f"[4d api] AFDM frame with 5 Hz CFO: ok {ok}, start {info.get('start')}, cfo "
+        f"{info.get('cfo_hz', 0.0):.3f} Hz, K1 launches {k1}, K2 launches {k2}; card vs CPU: "
+        f"bytes and start equal, |cfo err| {abs(info['cfo_hz'] - info_c['cfo_hz']):.3g} Hz; "
+        f"{hold_k1('AFDM', calls, k1)}")
+    if not ok or got_fb[:20] != fb or (ok_c, fb_c, info_c["start"]) != (ok, got_fb, info["start"]):
+        raise AssertionError("the AFDM frame on the card")
+    if abs(info["cfo_hz"] - info_c["cfo_hz"]) > F.RX_TOL or k1 < 1 or k2:
+        raise AssertionError("the AFDM frame's cfo or launches on the card")
+    api_frames = {"AFDMWaveform": (lambda a=afdm, x=audio: a.rx_frame(x), afdm, audio)}
+
+    # One clean frame per waveform class: K1 launches a rx_frame.
+    for spec in F.CLEAN_FRAMES:
+        wf, audio, _ = F.make_clean_frame(spec, seed=0)
+        cpu_wf = F.make_clean_frame(spec, seed=0, device="cpu")[0]
+        rx = held(f"{spec.name} {spec.modulation or spec.mode} {spec.rate} at {spec.snr_db:g} dB "
+                  f"({len(audio)} samples)",
+                  lambda: wf.rx_frame(audio, light=spec.light),
+                  lambda: cpu_wf.rx_frame(audio, light=spec.light),
+                  lambda rx: F.check_clean_frame(rx, spec), key=spec.name)
+        api_frames[spec.name] = (lambda w=wf, x=audio, s=spec: w.rx_frame(x, light=s.light),
+                                 wf, audio)
+        if spec.mode == "MC_DPSK":
+            codewords = rx.soft_bits.reshape(-1, 648)
+
+    # Near the decode floor, so that K1 is held to the plain decoder over
+    # several iterations at the API's batch sizes, not only over the first.
+    for spec in F.NOISY_FRAMES:
+        wf, audio, _ = F.make_clean_frame(spec, seed=0)
+        cpu_wf = F.make_clean_frame(spec, seed=0, device="cpu")[0]
+        seen = len(k1_held)
+        rx = held(f"noisy {spec.name} {spec.modulation} {spec.rate} at {spec.snr_db:g} dB "
+                  f"({len(audio)} samples)",
+                  lambda: wf.rx_frame(audio), lambda: cpu_wf.rx_frame(audio),
+                  lambda rx: F.check_clean_frame(rx, spec), key=f"noisy {spec.name}")
+        deep = [r for r in k1_held[seen:] if r["B"] == 4 and r["converged"] == 4
+                and np.mean(r["iterations"]) >= 2]
+        if not deep:
+            raise AssertionError(f"noisy {spec.name}: no B = 4 K1 call of two or more iterations")
+        if spec.mode == "MC_DPSK":
+            noisy_codewords = rx.soft_bits.reshape(-1, 648)
+            if not any(r["B"] == 1 and r["converged"] and r["iterations"][0] >= 2
+                       for r in k1_held[seen:]):
+                raise AssertionError("noisy MC-DPSK: the B = 1 header decode took one iteration")
+    sizes = sorted({r["B"] for r in k1_held})
+    k1_err = max(r["max_abs_err"] for r in k1_held)
+    log(f"[4d api] K1 vs plain over phase 4d: {len(k1_held)} launches held at B in {sizes}, "
+        f"{sum(r['converged'] for r in k1_held)} converged rows, most iterations of one "
+        f"{max(max(r['iterations']) for r in k1_held)}, max |llr err| {k1_err:.3g} "
+        f"(limit {F.LLR_TOL:g}), no row's outcome differing, "
+        f"{sum(len(r['drifted']) for r in k1_held)} rows with posteriors alone apart (auto-detect's "
+        "wrong candidates)")
+    if not {1, 4} <= set(sizes):
+        raise AssertionError(f"phase 4d held K1 at B in {sizes}; 1 and 4 expected")
+    return {"frames": api_frames, "launches": launches, "codewords": codewords,
+            "noisy_codewords": noisy_codewords, "k1_err": k1_err}
+
+
+@contextlib.contextmanager
+def tracked_snr_timed(spent: list):
+    """While open, every ``_tracked_snr`` call of the waveform API adds its
+    milliseconds on the host's clock to ``spent``: the spectral SNR as
+    ``rx_frame`` really calls it, on the frame's own window with its noise
+    reference and tracked floor.  The API reaches it after it has read the
+    decode's result, so the card is idle and the bracket holds host work
+    only."""
+    from ria_tpu_torch.wave import api as wave_api
+
+    inner = wave_api._tracked_snr
+
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        spent.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    wave_api._tracked_snr = timed
+    try:
+        yield
+    finally:
+        wave_api._tracked_snr = inner
+
+
+def time_waveform_api(api: dict, card: str) -> dict:
+    """Phase 7, the waveform API: ms per rx_frame by class (before any
+    profiler run), and the first against the second prx of a new length.
+    Returns {class: (median, min, max, median ms of the spectral SNR inside
+    those calls or None)}."""
+    from ria_tpu_torch.utils.timing import wall_ms
+
+    ms = {}
+    for name, (call, wf, audio) in api["frames"].items():
+        call()
+        spent: list[float] = []
+        per_call: list[float] = []
+
+        def call_and_split(call=call, spent=spent, per_call=per_call):
+            seen = len(spent)
+            call()
+            per_call.append(sum(spent[seen:]))
+
+        with tracked_snr_timed(spent):
+            whole = wall_ms(call_and_split, 9)
+        # Two of its parts: the spectral SNR (host numpy), bracketed inside
+        # these same nine calls, and the sync search alone (device work the
+        # host dispatches and waits for), timed in calls of its own.
+        if name == "AFDMWaveform":
+            ms[name], parts = whole + (None,), ""
+        else:
+            if not all(per_call):
+                raise AssertionError(f"{name}: a rx_frame call measured no spectral SNR")
+            snr_ms = float(np.median(per_call))
+            sync_ms = wall_ms(lambda: wf.detect_sync(audio), 9)[0]
+            ms[name] = whole + (snr_ms,)
+            parts = (f"; inside these calls the spectral SNR on the host takes {snr_ms:.3f} ms "
+                     f"({snr_ms / whole[0]:.1%} of the call); detect_sync alone {sync_ms:.3f} ms")
+        log(f"[7 timing] rx_frame {name} ({len(audio)} samples): median {ms[name][0]:.3f} ms/call "
+            f"(min {ms[name][1]:.3f}, max {ms[name][2]:.3f}; host clock, card synchronised, 9 "
+            f"calls after the first of this length){parts} ({card})")
+    with tempfile.TemporaryDirectory() as tmp:
+        for wfn in ("MC_DPSK", "OFDM_CHIRP"):
+            path = os.path.join(tmp, f"{wfn}.f32")
+            run_cli(["ptx", "new length", "-s", "W1AW", "-d", "VE3ABC",
+                     "-w", wfn, "-o", path])
+            # A tail of silence of an odd length: a recording length that no
+            # earlier phase has met, so the first call builds its detector.
+            with open(path, "ab") as f:
+                f.write(np.zeros(12345, np.float32).tobytes())
+            took = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                rc, out, _ = run_cli(["prx", path, "-w", wfn])
+                torch.cuda.synchronize()
+                took.append((time.perf_counter() - t0) * 1e3)
+                if rc != 0 or "new length" not in out:
+                    raise AssertionError(f"prx -w {wfn} of a new length failed")
+            log(f"[7 timing] prx -w {wfn} of a new length ({os.path.getsize(path) // 4} samples): "
+                f"first call {took[0]:.3f} ms, second {took[1]:.3f} ms, third {took[2]:.3f} ms; "
+                f"module build of the first call {took[0] - took[1]:.3f} ms ({card})")
+    return ms
+
+
+def trace_waveform_api(api: dict, ms: dict, card: str, dev: torch.device) -> dict:
+    """Phase 7: one profiler trace of a rx_frame of MC-DPSK and OFDM_CHIRP,
+    and K1 at the API's batch sizes (the header codeword alone, B = 1, and
+    the MC-DPSK clean frame's codewords): the host's time per
+    ``decode_codewords`` call, K1's device time per launch, its bound and
+    the share reached.  Returns {B: (host us, device us, bound us)}."""
+    from ria_tpu_torch.fec.ldpc import ldpc_decoder
+    from ria_tpu_torch.fec.ldpc_matrix import MIN_SUM_FACTOR, RECOMMENDED_ITERS
+    from ria_tpu_torch.phy.frame_v2 import decode_codewords
+    from ria_tpu_torch.utils.timing import kernel_us, trace_syncs, wall_ms
+
+    k1_small = {}
+    dec = ldpc_decoder("R1_4", RECOMMENDED_ITERS["R1_4"], dev)
+    for kind, codewords in (("clean", api["codewords"]), ("noisy", api["noisy_codewords"])):
+        for rows in (codewords[:1], codewords):
+            B = rows.shape[0]
+            host_ms = wall_ms(lambda: decode_codewords(rows, "R1_4", None), 20)[0]
+            x = torch.as_tensor(rows, device=dev)
+            f = torch.full((B,), MIN_SUM_FACTOR, device=dev)
+            us, how = kernel_us(lambda: dec(x, f), "ldpc_bp_kernel")
+            got = dec(x, f)
+            n_bad, err = compare(dec.plain(x, f), got)
+            iters = got.iterations
+            b_us, b_by = bound_us(dec, "K1", B, int(iters.sum()))
+            if kind == "clean":
+                k1_small[B] = (host_ms * 1e3, us, b_us)
+            log(f"[7 timing] K1 at the waveform API's size B={B}, {kind} MC-DPSK frame (R1_4, "
+                f"mean iterations {iters.float().mean():.2f}): decode_codewords "
+                f"{host_ms * 1e3:.1f} us per call on the host's clock (upload, launch, two copies "
+                f"back), K1 {us:.2f} us per launch on the device ({how}), bound {b_us:.3f} us ({b_by}), "
+                f"{b_us / us:.2%} of it reached; vs plain: rows differing {n_bad}, max |llr err| "
+                f"{err:.3g} ({card})")
+            if n_bad:
+                raise AssertionError(f"K1 disagrees with plain at the API's size B={B} ({kind})")
+
+    for name in ("MCDPSKWaveform", "OFDMChirpWaveform"):
+        t = trace_syncs(api["frames"][name][0])
+        log(f"[7 timing] trace of one rx_frame {name}: {t['device']} device kernels, copies and "
+            f"memsets, {t['busy_us'] / 1e3:.3f} ms device-busy, "
+            f"{t['busy_us'] / 1e3 / ms[name][0]:.1%} of its {ms[name][0]:.3f} ms; "
+            f"{t['syncs']} host-device synchronisations, {t['d2h']} copies to the host, "
+            f"{t['h2d']} from it ({card}); most device time: "
+            + ", ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in t["top"]))
+        if t["device"] < 1:
+            raise AssertionError(f"the trace of {name}.rx_frame shows no device activity")
+    return k1_small
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -211,7 +570,7 @@ def main() -> int:
     from ria_tpu_torch.phy.pipeline import make_ofdm_rx_pipeline, make_rx_pipeline
     from ria_tpu_torch.tools import ldpc_bench
     from ria_tpu_torch.tools import waveform_paths as W
-    from ria_tpu_torch.utils.timing import cuda_ms, device_us, trace_call
+    from ria_tpu_torch.utils.timing import cuda_ms, kernel_us, queued_us, trace_call
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
@@ -423,6 +782,10 @@ def main() -> int:
                                      f"({name})")
         wpaths[name] = (path, x, w_launches)
 
+    # -- 4d. waveform API and CLI ---------------------------------------------
+    api = waveform_api_phase(dev)
+    max_err["K1"] = max(max_err["K1"], api["k1_err"])
+
     # -- 5. A/B entry point ---------------------------------------------------
     log(f"[5 A/B] python -m ria_tpu_torch.tools.ldpc_bench {' '.join(BENCH_ARGS)}")
     ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
@@ -554,6 +917,7 @@ def main() -> int:
         log(f"[7 timing] path {name} B={W.BATCH}: median {whole:.3f} ms/call (min {lo:.3f}, max "
             f"{hi:.3f}, 7 windows of 10 calls), {samples / whole * 1e3:.4g} samples/s{split} "
             f"({card})")
+    api_ms = time_waveform_api(api, card)
     _, _, soft = rx.soft_bits(audio)
     dec = ldpc_decoder(RATE, None, dev)
     k2_dec = make_cuda_decoder_v1(RATE, device=dev)
@@ -590,8 +954,12 @@ def main() -> int:
         k1c = cuda_ms(fns["K1"], 20)[0]
         k2b = cuda_ms(fns["K2"], 20)[0]
         q2 = cuda_ms(fns["plain_v1"], 5)[0]
-        us = {name: device_us(fns[name], kernel)
-              for name, kernel in (("K1", "ldpc_bp_kernel"), ("K2", "ldpc_bp_v1_kernel"))}
+        read = {name: kernel_us(fns[name], kernel)
+                for name, kernel in (("K1", "ldpc_bp_kernel"), ("K2", "ldpc_bp_v1_kernel"))}
+        us = {name: t for name, (t, _) in read.items()}
+        # The same launches by the other clock: CUDA events around launches
+        # queued behind a spinning kernel (what kernel_us falls back to).
+        queued = {name: queued_us(fns[name]) for name in us}
         iterations = dec(x, f).iterations
         bounds = {name: bound_us(dec, name, x.shape[0], int(iterations.sum())) for name in us}
         times[label] = {"K1": ((k1a + k1b) / 2, (p1 + p2) / 2, us["K1"], bounds["K1"]),
@@ -600,12 +968,9 @@ def main() -> int:
             f"{iterations.float().mean():.2f}; K1 {k1a:.4f} / {k1b:.4f} / {k1c:.4f} ms, "
             f"plain {p1:.4f} / {p2:.4f} ms; K2 {k2a:.4f} / {k2b:.4f} ms, plain_v1 {q1:.4f} / "
             f"{q2:.4f} ms")
-        log(f"[7 timing] LDPC {RATE} {label}: device time per launch (torch.profiler, 20 "
-            "launches): " + ", ".join(
-                f"{name} " + ("not measured" if t is None else f"{t:.2f} us")
-                for name, t in us.items()))
-        if None in us.values():
-            raise AssertionError("the profiler showed no device time for K1 or K2")
+        log(f"[7 timing] LDPC {RATE} {label}: device time per launch: " + ", ".join(
+            f"{name} {t:.2f} us ({how}; {queued[name]:.2f} us by CUDA events around 20 queued "
+            "launches)" for name, (t, how) in read.items()))
         log(f"[7 timing] LDPC {RATE} {label}: K1/K2 device time {us['K1'] / us['K2']:.4f}; "
             + ", ".join(f"{name} bound {bounds[name][0]:.3f} us ({bounds[name][1]}), "
                         f"{bounds[name][0] / us[name]:.2%} of it reached"
@@ -616,14 +981,11 @@ def main() -> int:
         _, _, o_soft = orx.soft_bits(o_audio)
         o_dec = orx.decoder
         o_f = torch.full((o_soft.shape[0],), orx.min_sum_factor, device=dev)
-        o_us = device_us(lambda: o_dec(o_soft, o_f), "ldpc_bp_kernel")
-        if o_us is None:
-            raise AssertionError(f"the profiler showed no device time for K1 ({path})")
+        o_us, how = kernel_us(lambda: o_dec(o_soft, o_f), "ldpc_bp_kernel")
         o_iters = o_dec(o_soft, o_f).iterations
         o_bound = bound_us(o_dec, "K1", o_soft.shape[0], int(o_iters.sum()))
         log(f"[7 timing] K1 on {path} ({geom.rate}, B={o_soft.shape[0]}, mean iterations "
-            f"{o_iters.float().mean():.2f}): {o_us:.2f} us per launch (torch.profiler, 20 "
-            f"launches), bound {o_bound[0]:.3f} us ({o_bound[1]}), "
+            f"{o_iters.float().mean():.2f}): {o_us:.2f} us per launch ({how}), bound {o_bound[0]:.3f} us ({o_bound[1]}), "
             f"{o_bound[0] / o_us:.2%} of it reached ({card})")
 
     # K1 on each waveform path's own 64 header codewords.
@@ -634,15 +996,12 @@ def main() -> int:
             continue
         _, _, w_soft = path.soft_bits(*x)
         w_f = torch.full((w_soft.shape[0],), MIN_SUM_FACTOR, device=dev)
-        w_us = device_us(lambda: w_dec(w_soft, w_f), "ldpc_bp_kernel")
-        if w_us is None:
-            raise AssertionError(f"the profiler showed no device time for K1 ({name})")
+        w_us, how = kernel_us(lambda: w_dec(w_soft, w_f), "ldpc_bp_kernel")
         w_iters = w_dec(w_soft, w_f).iterations
         w_bound = bound_us(w_dec, "K1", w_soft.shape[0], int(w_iters.sum()))
         path_k1[name] = (w_us, w_bound)
         log(f"[7 timing] K1 on path {name} ({W.RATE}, B={w_soft.shape[0]}, mean iterations "
-            f"{w_iters.float().mean():.2f}): {w_us:.2f} us per launch (torch.profiler, 20 "
-            f"launches), bound {w_bound[0]:.3f} us ({w_bound[1]}), "
+            f"{w_iters.float().mean():.2f}): {w_us:.2f} us per launch ({how}), bound {w_bound[0]:.3f} us ({w_bound[1]}), "
             f"{w_bound[0] / w_us:.2%} of it reached ({card})")
 
     # One trace of each waveform path and of its stages.
@@ -665,15 +1024,17 @@ def main() -> int:
                 f"{busy_us / 1e3 / chain_ms[path][stage]:.1%} of its {chain_ms[path][stage]:.3f} "
                 f"ms ({card})" + top_kernels(stage, top))
 
+    k1_small = trace_waveform_api(api, api_ms, card, dev)
+
     # The serial floor: one codeword alone for all 50 iterations.
     ab_k1 = dec(ab_llr, ab_fac)
     row = int(torch.nonzero((ab_k1.iterations == 50) & ~ab_k1.success)[0])
     x1, f1 = ab_llr[row : row + 1], ab_fac[:1]
-    floor = {"K1": device_us(lambda: dec(x1, f1), "ldpc_bp_kernel"),
-             "K2": device_us(lambda: k2_dec(x1, f1), "ldpc_bp_v1_kernel")}
+    floor = {"K1": kernel_us(lambda: dec(x1, f1), "ldpc_bp_kernel"),
+             "K2": kernel_us(lambda: k2_dec(x1, f1), "ldpc_bp_v1_kernel")}
     log("[7 timing] serial floor, B=1 on A/B row {} (50 iterations): ".format(row) + ", ".join(
-        f"{name} {t:.2f} us per launch, {t / 50:.4f} us per iteration"
-        for name, t in floor.items()) + f" ({card})")
+        f"{name} {t:.2f} us per launch, {t / 50:.4f} us per iteration ({how})"
+        for name, (t, how) in floor.items()) + f" ({card})")
 
     # -- 8. result ------------------------------------------------------------
     # Times at the main path's 256 codewords.  ``launches`` counts the path
@@ -692,6 +1053,7 @@ def main() -> int:
         by_path = {"mc_dpsk": per_call}
         by_path.update({path: run[3][i] for path, run in ofdm.items()})
         by_path.update({path: run[2][i] for path, run in wpaths.items()})
+        by_path.update({f"api {tag}": n[i] for tag, n in api["launches"].items()})
         kernels.append({
             "name": "ldpc_bp" if name == "K1" else "ldpc_bp_v1", "route": "cuda",
             "source": source, "replaces": replaces, "launches": n_launch,
@@ -702,6 +1064,13 @@ def main() -> int:
     # K1's device time and bound on each waveform path's 64 codewords.
     kernels[0]["device_us_by_path"] = {path: t[0] for path, t in path_k1.items()}
     kernels[0]["bound_us_by_path"] = {path: t[1][0] for path, t in path_k1.items()}
+    kernels[0]["api_us_by_batch"] = {
+        str(B): {"decode_codewords_host_us": t[0], "device_us": t[1], "bound_us": t[2]}
+        for B, t in k1_small.items()}
+    # The whole call on the host's clock: the API's number, not a kernel's.
+    log(json.dumps({"rx_frame_ms_by_class": {name: t[0] for name, t in api_ms.items()},
+                    "spectral_snr_ms_in_call_by_class": {name: t[3] for name, t in api_ms.items()},
+                    "card": card}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -4,3 +4,5 @@ Mirrors the layout of ``ria_tpu`` (utils, fec, dsp, sync, wave, phy).  Plain ten
 code is PyTorch; the LDPC belief-propagation kernel is CUDA C++ compiled for
 sm_90a on first use (``csrc/ldpc_bp.cu``).  Imports no JAX.
 """
+
+__version__ = "0.1.0"

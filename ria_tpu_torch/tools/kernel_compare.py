@@ -51,7 +51,7 @@ from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.fec.ldpc import DecodeResult, ldpc_decoder
 from ria_tpu_torch.fec.ldpc_matrix import CODE_PARAMS, encode_np, get_code
 from ria_tpu_torch.tools import ldpc_bench
-from ria_tpu_torch.utils.timing import device_us
+from ria_tpu_torch.utils.timing import kernel_us
 
 FACTORS = np.array([0.9375, 0.875, 0.75, 0.625, 0.5], np.float32)
 SIGMA = {"R1_4": 2.4, "R1_2": 1.8, "R2_3": 1.5, "R3_4": 1.4, "R5_6": 1.4}
@@ -184,7 +184,7 @@ def run(argv=None) -> int:
             for _ in range(3):
                 fn()
         iters = float(fns["after"]().iterations.float().mean())
-        us = [(which, device_us(fns[which], symbol))
+        us = [(which, kernel_us(fns[which], symbol)[0])
               for which in ("before", "after", "after", "before")]
         b = [t for which, t in us if which == "before"]
         a = [t for which, t in us if which == "after"]

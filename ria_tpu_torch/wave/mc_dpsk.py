@@ -184,12 +184,20 @@ class MCDPSKDemodulator(nn.Module):
         return soft_from_zsym(zsym, cfg, self.num_data_symbols)
 
 
+@functools.lru_cache(maxsize=64)
+def mc_dpsk_demodulator(cfg: MCDPSKConfig, num_data_symbols: int,
+                        device: str | torch.device = "cuda") -> MCDPSKDemodulator:
+    """Cached :class:`MCDPSKDemodulator` for a (config, symbol count, device)."""
+    return MCDPSKDemodulator(cfg, num_data_symbols, device)
+
+
 def demodulate(frame_samples: torch.Tensor, cfo_hz: torch.Tensor, cfg: MCDPSKConfig,
                num_data_symbols: int) -> MCDPSKDemodResult:
     """Demodulate training+ref+data samples (chirp already consumed), on the
     samples' device.  frame_samples: [..., (T+1+R)*sps] real, starting at the
     training symbols; R = num_data_symbols * spreading."""
-    return MCDPSKDemodulator(cfg, num_data_symbols, frame_samples.device)(frame_samples, cfo_hz)
+    return mc_dpsk_demodulator(cfg, num_data_symbols, frame_samples.device)(frame_samples,
+                                                                            cfo_hz)
 
 
 def _normalize(v: torch.Tensor) -> torch.Tensor:

@@ -13,11 +13,13 @@ from ria_tpu_torch.entry import (RATE, _make_ofdm_batch, bench_batches, entry, g
                                  ofdm_geometry)
 from ria_tpu_torch.fec import ldpc as T
 from ria_tpu_torch.fec import ldpc_kernel
+from ria_tpu_torch import cli
 from ria_tpu_torch.phy import frame_v2
+from ria_tpu_torch.phy.modem import AudioBuffer, MCDPSKModem
 from ria_tpu_torch.phy.pipeline import make_ofdm_rx_pipeline, make_rx_pipeline, make_tx_pipeline
 from ria_tpu_torch.sync import css, zc
 from ria_tpu_torch.tools import waveform_paths
-from ria_tpu_torch.wave import dpsk, mfsk, ofdm, otfs
+from ria_tpu_torch.wave import afdm, api, dpsk, mfsk, ofdm, otfs
 
 torch.set_num_threads(1)
 
@@ -71,7 +73,58 @@ CALLS = {
     "MFSKDemodulator": lambda: mfsk.MFSKDemodulator(mfsk.MFSKConfig(), 48).bank,
     "OTFSDemodulator": lambda: otfs.OTFSDemodulator(otfs.OTFSConfig()).t,
     "make_path_batch": lambda: waveform_paths.make_path_batch("otfs_eq", 1).inputs[0],
+    "create_waveform": lambda: api.create_waveform(frame_v2.WaveformMode.MC_DPSK).device,
+    "create_waveform[AFDM]": lambda: api.create_waveform(frame_v2.WaveformMode.AFDM).device,
+    "MCDPSKWaveform": lambda: api.MCDPSKWaveform().device,
+    "OFDMChirpWaveform": lambda: api.OFDMChirpWaveform().device,
+    "OFDMCoxWaveform": lambda: api.OFDMCoxWaveform().device,
+    "OTFSWaveform": lambda: api.OTFSWaveform().device,
+    "MFSKWaveform": lambda: api.MFSKWaveform().device,
+    "DPSKWaveform": lambda: api.DPSKWaveform().device,
+    "AFDMWaveform": lambda: afdm.AFDMWaveform().device,
+    "MCDPSKModem": lambda: MCDPSKModem().device,
+    "AudioBuffer": lambda: AudioBuffer(np.zeros(8, np.float32)).samples,
+    "_control_crc_gate": lambda: _gate_launches(),
+    "afdm.modulate_block": lambda: _launch_free(afdm.modulate_block(
+        np.ones(64, np.complex64), afdm.AFDMConfig())),
 }
+
+
+def _gate_launches():
+    """The gate's rescue decode runs on the card: a host result."""
+    ok, _ = api._control_crc_gate(None, np.zeros(648, np.float32), "R1_4")
+    return np.asarray(ok)
+
+
+def _launch_free(_):
+    """A host result of a call that decodes nothing: only the device rule
+    (no card, no result) is held."""
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("cmd", [["info"], ["ptx", "ping"], ["prx", "-"]])
+def test_cli_defaults_to_the_card(cmd, capsys, tmp_path, monkeypatch):
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            cli.main(cmd)
+        return
+    if cmd == ["info"]:
+        assert cli.main(cmd) == 0
+        assert "cuda" in capsys.readouterr().out
+        return
+    # The command itself, with no --device: every waveform it builds lies on
+    # the card (ptx writes a PING, prx reads that file in place of stdin).
+    made = []
+    inner = cli.create_waveform
+    monkeypatch.setattr(cli, "create_waveform",
+                        lambda *a, **kw: made.append(inner(*a, **kw)) or made[-1])
+    f32 = str(tmp_path / "ping.f32")
+    assert cli.main(["ptx", "ping", "-o", f32]) == 0
+    if cmd[0] == "prx":
+        made.clear()
+        assert cli.main(["prx", f32, "-w", "MC_DPSK"]) == 0
+        assert "type=PING" in capsys.readouterr().out
+    assert made and all(wf.device.type == "cuda" for wf in made)
 
 
 @pytest.mark.parametrize("name", list(CALLS))

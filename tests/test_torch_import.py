@@ -26,6 +26,9 @@ def test_port_imports_without_jax():
         "import ria_tpu_torch.fec.chase, ria_tpu_torch.sync.zc, ria_tpu_torch.sync.css\n"
         "import ria_tpu_torch.wave.dpsk, ria_tpu_torch.wave.mfsk, ria_tpu_torch.wave.otfs\n"
         "import ria_tpu_torch.tools.waveform_paths\n"
+        "import ria_tpu_torch.dsp.snr, ria_tpu_torch.phy.channel_probe, ria_tpu_torch.phy.modem\n"
+        "import ria_tpu_torch.wave.selection, ria_tpu_torch.wave.api, ria_tpu_torch.wave.afdm\n"
+        "import ria_tpu_torch.cli\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ria_tpu.')))\n"
         "assert not bad, bad\n"
@@ -35,3 +38,20 @@ def test_port_imports_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_cli_runs_without_jax():
+    """``python -m ria_tpu_torch.cli info --device cpu`` with JAX made
+    unimportable: the command line needs none of it."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ria_tpu'] = None\n"
+        "sys.argv = ['ria', 'info', '--device', 'cpu']\n"
+        "import runpy\n"
+        "runpy.run_module('ria_tpu_torch.cli', run_name='__main__')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert "MC-DPSK" in proc.stdout and "device cpu" in proc.stdout

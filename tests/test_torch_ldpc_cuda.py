@@ -327,3 +327,24 @@ def test_k2_resources_hold_the_ab_batch(cuda_device):
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert res["local_bytes"] == 0 and res["registers"] <= 32
     assert res["blocks_per_sm"] * sms >= 512
+
+
+@pytest.mark.cuda
+def test_kernel_us_reads_the_profiler_and_falls_back_to_events(cuda_device, capsys):
+    """``kernel_us`` reads K1's device time from the profiler; with a kernel
+    name that no trace holds it times queued launches by CUDA events, which
+    reads above the profiler's figure (the gap between launches) and under
+    four times it."""
+    from ria_tpu_torch.utils.timing import kernel_us
+
+    dec = ldpc_decoder("R1_4", None, cuda_device)
+    x = torch.as_tensor(_llrs("R1_4", 64, 0.5, 3), device=cuda_device)
+    f = torch.full((64,), 0.75, device=cuda_device)
+    for _ in range(3):
+        dec(x, f)
+    us, how = kernel_us(lambda: dec(x, f), "ldpc_bp_kernel")
+    assert how.startswith("torch.profiler") and 1.0 < us < 50.0
+    queued, how = kernel_us(lambda: dec(x, f), "no_such_kernel")
+    assert how.startswith("CUDA events") and us < queued < 4 * us
+    with capsys.disabled():
+        print(f"\nkernel_us at R1_4 B=64: profiler {us:.2f} us, queued events {queued:.2f} us")

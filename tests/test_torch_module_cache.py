@@ -13,8 +13,9 @@ import pytest
 import torch
 from torch import nn
 
+from ria_tpu_torch.phy import frame_v2
 from ria_tpu_torch.sync import chirp, css, zc
-from ria_tpu_torch.wave import dpsk, mfsk, ofdm, otfs
+from ria_tpu_torch.wave import api, dpsk, mc_dpsk, mfsk, ofdm, otfs
 
 torch.set_num_threads(1)
 
@@ -37,6 +38,8 @@ CALLS = {
     "ofdm.demodulate_presynced": lambda n: ofdm.demodulate_presynced(
         _x(2, 5 * OFDM.symbol_samples + n), torch.zeros(2), OFDM, 3),
     "ofdm.demodulate_from_bins": lambda n: ofdm.demodulate_from_bins(*_BINS, OFDM, 3),
+    "mc_dpsk.demodulate": lambda n: mc_dpsk.demodulate(
+        _x(2, 29 * 512 + n), torch.zeros(2), mc_dpsk.MCDPSKConfig(), 20),
     "zc.detect": lambda n: zc.detect(_x(2, n), zc.ZCConfig(), zc.ROOT_MASK_DATA),
     "css.detect": lambda n: css.detect(_x(2, 57600 + n), css.CSSConfig()),
     "dpsk.find_preamble": lambda n: dpsk.find_preamble(
@@ -93,3 +96,66 @@ def test_cached_module_gives_the_fresh_module_result():
         assert torch.equal(a, b) and torch.equal(a, c)
     assert zc.zc_detector(cfg, 48000, zc.ROOT_MASK_ALL, x.device) is \
         zc.zc_detector(cfg, 48000, zc.ROOT_MASK_ALL, x.device)
+
+
+# (mode, modulation, rate, light, data frame?, detectors a recording length
+# builds) of one clean frame per waveform class and preamble.  A QAM16
+# waveform's control frame is found by the second LTS template (the control
+# profile's pilot layout), so that length builds two LTS detectors.
+WAVEFORM_FRAMES = [
+    ("MC_DPSK", "DBPSK", "R1_4", False, True, 1),
+    ("MC_DPSK", "DQPSK", "R1_4", True, True, 1),
+    ("OFDM_CHIRP", "DQPSK", "R1_2", False, True, 1),
+    ("OFDM_CHIRP", "QAM16", "R1_2", True, False, 2),
+    ("OFDM_COX", "QPSK", "R1_2", False, True, 1),
+    ("OTFS_EQ", "QPSK", "R1_4", False, True, 1),
+    ("OTFS_RAW", "QPSK", "R1_4", False, False, 1),
+    ("DPSK", "DQPSK", "R1_4", False, False, 1),
+    ("MFSK", None, "R1_4", False, False, 1),
+    ("AFDM", None, "R1_4", False, False, 1),
+]
+
+
+@pytest.mark.parametrize("mode,mod,rate,light,data,detectors", WAVEFORM_FRAMES,
+                         ids=[f"{c[0]}-{'light' if c[3] else 'full'}" for c in WAVEFORM_FRAMES])
+def test_second_rx_frame_of_a_length_constructs_no_module(mode, mod, rate, light, data,
+                                                          detectors, constructed):
+    """The waveform classes' call sites: the first ``rx_frame`` of a
+    recording length builds the detector and the demodulators (the header
+    codeword's and the frame's), the second builds nothing, on a fresh
+    waveform object too; ``detect_sync`` and ``peek_header`` reuse them."""
+    wm = frame_v2.WaveformMode[mode]
+    wf = api.create_waveform(wm, mod, rate, device="cpu")
+    if not data or mode == "AFDM":
+        fb = frame_v2.ControlFrame.make_ack("W1AW", frame_v2.hash_callsign("VE3ABC"),
+                                            seq=3).serialize()
+    elif mode.startswith("OFDM"):
+        fb = frame_v2.make_fixed_data_frame("W1AW", "VE3ABC", 3, b"cached modules", rate).serialize()
+    else:
+        fb = frame_v2.DataFrame.make_data("W1AW", "VE3ABC", 3, b"cached modules").serialize()
+    tx = wf.tx_frame(fb, light=light)
+    audio = np.concatenate([np.zeros(2000, np.float32), tx, np.zeros(2000, np.float32)])
+    audio += RNG.normal(0, 1e-3, audio.shape).astype(np.float32)
+
+    def rx(w):
+        if mode == "AFDM":
+            ok, got, _ = w.rx_frame(audio)
+            return ok, got[:20]
+        r = w.rx_frame(audio, light=light)
+        return r.ok, r.frame_bytes[: len(fb)]
+
+    assert rx(wf) == (True, fb)
+    before = constructed[0]
+    assert rx(wf) == (True, fb)
+    assert rx(api.create_waveform(wm, mod, rate, device="cpu")) == (True, fb)
+    if mode != "AFDM":
+        sync = wf.detect_sync(audio, light)
+        wf.peek_header(audio, sync["start"], sync["cfo_hz"], light)
+    assert constructed[0] == before, f"{mode} built a module on a repeated rx_frame"
+    # Another recording length: another detector, and only that.
+    longer = np.concatenate([audio, np.zeros(1000, np.float32)])
+    if mode == "AFDM":
+        wf.rx_frame(longer)
+    else:
+        wf.rx_frame(longer, light=light)
+    assert constructed[0] == before + detectors
