@@ -48,6 +48,22 @@ these phases, each printing its lines and raising on failure:
    same call with ``device="cpu"`` (ok, bytes, header, flags and start
    exact; CFO and SNR within 1e-3; soft bits within 2e-3), at least one K1
    launch and no K2 launch per ``rx_frame``, the counts printed per waveform;
+4e. protocol sessions (``ria_tpu_torch.tools.session_paths``) with the
+   default device, at the reference's geometry (48 kHz, 200 ms blocks, the
+   40 s ring, ITU-R preset channels, the 10-carrier MC-DPSK handshake, the
+   negotiated waveform): S1 (12 dB AWGN, seed 7: connect, a message each
+   way, disconnect) in lock step with the same session on the CPU port, both
+   fed one CPU generator's draws, every tick equal (states, links, counters,
+   ring, pending sync, messages; measured SNR within 1e-3 dB); S2 (6 dB
+   AWGN, seed 3, eight messages), S3 (Poor 15 dB, seed 42) and S4 (Good
+   -8 dB, seed 42, the session floor: reported, not asserted), each fed
+   CPU torch generators' draws (seeds ``seed`` and ``seed + 1``) on the card.  S1-S3 connect and deliver every message, S1 disconnects
+   cleanly.  Every K1 launch of every session is held against the plain
+   decoder on its own LLRs, and K2 is never launched.  Per session: ticks,
+   links, wall seconds, audio seconds per wall second, ms per tick (median,
+   p90), the tick split into channel, sync search, header peek, frame decode
+   and the rest (host clock, card synchronised), ``decode_time_ms_avg``, K1
+   launches and their batch sizes, and the phase's own seconds;
 5. A/B entry point: ``ria_tpu_torch.tools.ldpc_bench`` at its default size
    (R1/4, B = 512, -1 dB), K1, K2 and the plain decoder reporting the same
    success set and bit accuracy, with K2's launch count from that run; then
@@ -76,7 +92,9 @@ these phases, each printing its lines and raising on failure:
    synchronised, second and later calls of a length), the first and second
    ``prx`` of a new recording length (module build against call), and for
    MC-DPSK and OFDM_CHIRP one trace of a ``rx_frame``: device kernels, busy
-   share, host-device synchronisations and copies;
+   share, host-device synchronisations and copies; K1 at the sessions' batch
+   sizes (device time, bound and share) and one trace of an S1 tick that
+   decodes a frame;
 8. a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -546,6 +564,141 @@ def trace_waveform_api(api: dict, ms: dict, card: str, dev: torch.device) -> dic
     return k1_small
 
 
+def session_phase(card: str) -> dict:
+    """Phase 4e.  Returns {"runs": {session: its summary}, "launches":
+    {session: (K1, K2)}, "calls": {(B, k): (decoder, LLRs, factors)} one
+    recorded K1 call per batch size, "decode_tick": an S1 tick that decodes
+    a frame, "decode_tick_ms": its milliseconds in the lock-step run} for
+    the timing phase and the result lines."""
+    from ria_tpu_torch.protocol.connection import ConnectionState
+    from ria_tpu_torch.tools import session_paths as S
+    from ria_tpu_torch.tools import waveform_frames as F
+
+    t_phase = time.perf_counter()
+    runs, launches, rep_calls = {}, {}, {}
+    decode_tick = decode_tick_ms = None
+    for name, s in S.SESSIONS.items():
+        with S.StageTimer(torch.cuda.synchronize) as timer:
+            if name == "S1":
+                # The card's run and the CPU port's, in lock step, both fed
+                # one CPU generator's draws.
+                card_sim = S.make_sim(s, draws=S.generator_draws(s, "cuda", "cpu"))
+                cpu_sim = S.make_sim(s, "cpu", S.generator_draws(s, "cpu", "cpu"))
+                if card_sim.device.type != "cuda":
+                    raise AssertionError("DualStationSim's default device is not the card")
+                t0 = time.perf_counter()
+                lock, k1, k2, calls = F.counted_k1(lambda: S.lock_step(
+                    [card_sim, cpu_sim], s, [ConnectionState, ConnectionState],
+                    synchronize=torch.cuda.synchronize))
+                out = dict(lock["outs"][0], ticks=lock["ticks"], tick_ms=lock["tick_ms"][0],
+                           wall_s=sum(lock["tick_ms"][0]) / 1e3,
+                           stats={side: getattr(card_sim, side).stats for side in ("alpha", "bravo")})
+                decode_tick = S.decode_ticks(lock["snapshots"])[0]
+                decode_tick_ms = lock["tick_ms"][0][decode_tick - 1]
+                cpu_s = sum(lock["tick_ms"][1]) / 1e3
+                log(f"[4e sessions] S1 card vs CPU port: {lock['ticks']} ticks equal (states, "
+                    f"links, counters, ring, pending sync, messages), max |snr err| "
+                    f"{lock['max_snr_err']:.3g} dB (limit {S.SNR_TOL_DB:g}); the CPU port's "
+                    f"run {cpu_s:.2f} s of {time.perf_counter() - t0:.2f} s")
+            else:
+                out, k1, k2, calls = F.counted_k1(lambda: S.run(
+                    s, draws=S.generator_draws(s, "cuda", "cpu"),
+                    synchronize=torch.cuda.synchronize))
+        outcome = S.check_outcome(s, out)
+        launches[name] = (k1, k2)
+        if len(calls) != k1 or k2:
+            raise AssertionError(f"{name}: K1 launches {k1} ({len(calls)} recorded), K2 {k2}")
+        rows = F.hold_k1_calls(calls, name, DRIFT_AFTER)
+        for dec, llrs, factors, _ in calls:
+            rep_calls.setdefault((llrs.shape[0], dec.k), (dec, llrs, factors))
+        sizes = sorted({r["B"] for r in rows})
+        drifted = [d for r in rows for d in r["drifted"]]
+        iters = [i for r in rows for i in r["iterations"]]
+        ticks = out["ticks"]
+        tick_ms = out["tick_ms"]
+        audio_s = ticks * 0.2
+        stage = {k: v / ticks for k, v in timer.totals.items()}
+        rest = float(np.mean(tick_ms)) - sum(stage.values())
+        dec_ms = [out["stats"][side].decode_time_ms_avg for side in ("alpha", "bravo")]
+        runs[name] = {
+            "ticks": ticks, "connect_ticks": out.get("connect_ticks"), "link": out.get("link"),
+            "final_link": out.get("final_link"), "messages": out.get("messages"),
+            "disconnected": out.get("disconnected"), "wall_s": out["wall_s"],
+            "audio_s_per_wall_s": audio_s / out["wall_s"],
+            "tick_ms_median": float(np.median(tick_ms)),
+            "tick_ms_p90": float(np.percentile(tick_ms, 90)), "tick_ms_mean": float(np.mean(tick_ms)),
+            "stage_ms_per_tick": dict(stage, rest=rest), "stage_calls": dict(timer.calls),
+            "decode_time_ms_avg": dec_ms, "k1_launches": k1, "k1_batch_sizes": sizes,
+            "k1_max_iterations": max(iters) if iters else 0,
+            "k1_max_abs_err": max((r["max_abs_err"] for r in rows), default=0.0)}
+        r = runs[name]
+        log(f"[4e sessions] {name} {s.channel}({s.snr_db:g}) seed {s.seed}: {outcome}; {ticks} "
+            f"ticks ({audio_s:.1f} s of audio) in {out['wall_s']:.2f} s, "
+            f"{r['audio_s_per_wall_s']:.2f} audio s per wall s; ms per tick median "
+            f"{r['tick_ms_median']:.2f}, p90 {r['tick_ms_p90']:.2f}, mean {r['tick_ms_mean']:.2f} "
+            f"({card})")
+        log(f"[4e sessions] {name} a tick, mean ms (host clock, card synchronised): "
+            + ", ".join(f"{k} {v:.2f}" for k, v in r["stage_ms_per_tick"].items())
+            + "; calls " + ", ".join(f"{k} {v}" for k, v in timer.calls.items())
+            + f"; decode_time_ms_avg ALPHA {dec_ms[0]:.2f}, BRAVO {dec_ms[1]:.2f}")
+        log(f"[4e sessions] {name}: K1 launches {k1} at B in {sizes}, iterations up to "
+            f"{r['k1_max_iterations']}, K2 launches {k2}; K1 vs plain: no row's outcome "
+            f"differing, max |llr err| {r['k1_max_abs_err']:.3g} (limit {F.LLR_TOL:g})"
+            + ("" if not drifted else
+               f"; {len(drifted)} rows with equal bits after equal iterations (over "
+               f"{DRIFT_AFTER}) and posteriors up to {max(d[2] for d in drifted):.3g} apart"))
+        if k1 < 1:
+            raise AssertionError(f"{name} launched no K1")
+    log(f"[4e sessions] phase 4e took {time.perf_counter() - t_phase:.1f} s")
+    return {"runs": runs, "launches": launches, "calls": rep_calls, "decode_tick": decode_tick,
+            "decode_tick_ms": decode_tick_ms}
+
+
+def time_sessions(sessions: dict, card: str) -> dict:
+    """Phase 7, the sessions: K1 at each batch size the sessions launched it
+    with (device time, bound, share), and one profiler trace of the S1 tick
+    that first decodes a frame, replayed on a fresh simulator.  Returns
+    {B: (device us, bound us)} of the R1/4 and other codes' calls."""
+    from ria_tpu_torch.tools import session_paths as S
+    from ria_tpu_torch.utils.timing import kernel_us, trace_syncs
+
+    k1_by_b = {}
+    for (B, k), (dec, x, f) in sorted(sessions["calls"].items()):
+        us, how = kernel_us(lambda: dec(x, f), "ldpc_bp_kernel")
+        iters = dec(x, f).iterations
+        b_us, b_by = bound_us(dec, "K1", B, int(iters.sum()))
+        k1_by_b[f"B={B} k={k}"] = (us, b_us)
+        log(f"[7 timing] K1 at a session's size B={B}, k={k} (iterations "
+            f"{iteration_counts(iters.tolist())}): {us:.2f} us per launch ({how}), bound "
+            f"{b_us:.3f} us ({b_by}), {b_us / us:.2%} of it reached ({card})")
+    s = S.SESSIONS["S1"]
+    tick = sessions["decode_tick"]
+    sim, gen = S.replay_to(s, tick, draws=S.generator_draws(s, "cuda", "cpu"))
+    before = (sim.alpha.stats.frames_rx, sim.bravo.stats.frames_rx)
+    spent = []
+
+    def one_tick():
+        t0 = time.perf_counter()
+        next(gen)
+        torch.cuda.synchronize()
+        spent.append((time.perf_counter() - t0) * 1e3)
+
+    tr = trace_syncs(one_tick)
+    after = (sim.alpha.stats.frames_rx, sim.bravo.stats.frames_rx)
+    log(f"[7 timing] trace of S1 tick {sim.ticks} (frames decoded in it: "
+        f"{sum(after) - sum(before)}; {len(spent)} traced block(s)): {tr['device']} device "
+        f"kernels, copies and memsets, {tr['busy_us'] / 1e3:.3f} ms device-busy, "
+        f"{tr['busy_us'] / 1e3 / spent[-1]:.1%} of its {spent[-1]:.3f} ms under the profiler, "
+        f"{tr['busy_us'] / 1e3 / sessions['decode_tick_ms']:.1%} of the "
+        f"{sessions['decode_tick_ms']:.3f} ms the same tick took in phase 4e; {tr['syncs']} "
+        f"host-device synchronisations, {tr['d2h']} copies to the host, {tr['h2d']} from it "
+        f"({card}); most device time: "
+        + ", ".join(f"{n[:60]} {us / 1e3:.3f} ms" for n, us in tr["top"]))
+    if tr["device"] < 1:
+        raise AssertionError("the trace of an S1 tick shows no device activity")
+    return k1_by_b
+
+
 def main() -> int:
     # -- 1. device ------------------------------------------------------------
     if not torch.cuda.is_available():
@@ -786,6 +939,10 @@ def main() -> int:
     api = waveform_api_phase(dev)
     max_err["K1"] = max(max_err["K1"], api["k1_err"])
 
+    # -- 4e. protocol sessions ------------------------------------------------
+    sessions = session_phase(card)
+    max_err["K1"] = max([max_err["K1"]] + [r["k1_max_abs_err"] for r in sessions["runs"].values()])
+
     # -- 5. A/B entry point ---------------------------------------------------
     log(f"[5 A/B] python -m ria_tpu_torch.tools.ldpc_bench {' '.join(BENCH_ARGS)}")
     ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
@@ -1025,6 +1182,7 @@ def main() -> int:
                 f"ms ({card})" + top_kernels(stage, top))
 
     k1_small = trace_waveform_api(api, api_ms, card, dev)
+    k1_sessions = time_sessions(sessions, card)
 
     # The serial floor: one codeword alone for all 50 iterations.
     ab_k1 = dec(ab_llr, ab_fac)
@@ -1054,6 +1212,7 @@ def main() -> int:
         by_path.update({path: run[3][i] for path, run in ofdm.items()})
         by_path.update({path: run[2][i] for path, run in wpaths.items()})
         by_path.update({f"api {tag}": n[i] for tag, n in api["launches"].items()})
+        by_path.update({f"session {name}": n[i] for name, n in sessions["launches"].items()})
         kernels.append({
             "name": "ldpc_bp" if name == "K1" else "ldpc_bp_v1", "route": "cuda",
             "source": source, "replaces": replaces, "launches": n_launch,
@@ -1067,6 +1226,9 @@ def main() -> int:
     kernels[0]["api_us_by_batch"] = {
         str(B): {"decode_codewords_host_us": t[0], "device_us": t[1], "bound_us": t[2]}
         for B, t in k1_small.items()}
+    kernels[0]["session_us_by_batch"] = {
+        b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_sessions.items()}
+    log(json.dumps({"sessions": sessions["runs"], "card": card}))
     # The whole call on the host's clock: the API's number, not a kernel's.
     log(json.dumps({"rx_frame_ms_by_class": {name: t[0] for name, t in api_ms.items()},
                     "spectral_snr_ms_in_call_by_class": {name: t[3] for name, t in api_ms.items()},

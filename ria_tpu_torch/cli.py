@@ -1,9 +1,11 @@
-"""``ria`` command-line tool of the PyTorch port: single-frame TX/RX and info.
+"""``ria`` command-line tool of the PyTorch port: frame TX/RX, monitor and info.
 
 Port of ``ria_tpu/cli.py``, which mirrors the reference CLI (src/main.cpp):
 ``ptx`` renders a frame (text, ping, connect, disconnect) to float32 samples
 on stdout or a file; ``prx`` decodes float32 samples from a file or stdin and
-prints parsed frames; ``info`` prints the modem configuration.  Flags:
+prints parsed frames; ``monitor`` streams a recording through a ``Station``
+in quarter-second blocks and prints an ASCII waterfall, the decode status
+and every message; ``info`` prints the modem configuration.  Flags:
 -s/-d callsigns, -w waveform, -m modulation, -r rate, -o output, and
 ``--device`` (default ``cuda``: the sync, demodulation and LDPC decode run on
 the card, and without one the command raises; ``--device cpu`` runs them on
@@ -13,6 +15,7 @@ every waveform it tries.
 Usage:
   python -m ria_tpu_torch.cli ptx "hello world" -s W1AW -d VE3ABC -o tx.f32
   python -m ria_tpu_torch.cli prx tx.f32
+  python -m ria_tpu_torch.cli monitor tx.f32
   python -m ria_tpu_torch.cli --device cpu info
 """
 
@@ -212,6 +215,67 @@ def cmd_prx(args) -> int:
     return 0
 
 
+def render_waterfall_ascii(db: np.ndarray, freqs: np.ndarray, width: int = 72,
+                           height: int = 16) -> str:
+    """Terminal waterfall: rows = time (newest last), cols = frequency."""
+    if db.size == 0:
+        return "(no signal)"
+    ramp = " .:-=+*#%@"
+    t_idx = np.linspace(0, db.shape[0] - 1, min(height, db.shape[0])).astype(int)
+    f_idx = np.linspace(0, db.shape[1] - 1, min(width, db.shape[1])).astype(int)
+    grid = db[np.ix_(t_idx, f_idx)]
+    lo, hi = np.percentile(grid, 10), np.percentile(grid, 99)
+    norm = np.clip((grid - lo) / max(hi - lo, 1e-6), 0.0, 1.0)
+    chars = (norm * (len(ramp) - 1)).astype(int)
+    lines = ["".join(ramp[c] for c in row) for row in chars]
+    axis = (f"{freqs[f_idx[0]]:.0f}Hz" + " " * (len(f_idx) - 12)
+            + f"{freqs[f_idx[-1]]:.0f}Hz")
+    return "\n".join(lines + [axis])
+
+
+def cmd_monitor(args) -> int:
+    """Textual waterfall + per-block decode status over an f32 stream.
+
+    Headless counterpart of the reference GUI's waterfall/status widgets:
+    streams audio (file or stdin) through a Station in block steps and
+    renders an ASCII waterfall plus SNR/CFO/fading/frame counters.  The
+    station's waveforms run on ``args.device``.
+    """
+    from ria_tpu_torch.phy.station import Station
+    from ria_tpu_torch.runtime.monitor import ModemMonitor, waterfall
+    from ria_tpu_torch.wave.api import MCDPSKWaveform
+
+    if args.input == "-":
+        raw = sys.stdin.buffer.read()
+    else:
+        with open(args.input, "rb") as f:
+            raw = f.read()
+    audio = np.frombuffer(raw, np.float32)
+    st = Station(args.src, device=args.device)
+    st.promiscuous = True  # observe connected-mode (light) traffic too
+    # Out-of-session data traffic defaults to DQPSK R1/4 (the reference
+    # CLI's data mode); the handshake waveform keeps decoding DBPSK
+    # chirp-preamble frames.
+    st.data_wf = MCDPSKWaveform(modulation="DQPSK", rate="R1_4", device=args.device)
+    mon = ModemMonitor(st)
+    block = 48000 // 4
+    decoded = []
+    st.conn.on_message = lambda m: decoded.append(m)
+    for off in range(0, len(audio), block):
+        st.feed_audio(audio[off: off + block])
+        st.poll()
+        st.tick(int(1000 * block / 48000.0))
+    db, freqs = waterfall(audio[-48000 * 4:])
+    s = mon.status()
+    print(render_waterfall_ascii(db, freqs))
+    print(f"state={s.state} wf={s.waveform} snr={s.snr_db:.1f}dB "
+          f"cfo={s.cfo_hz:.1f}Hz fading={s.fading_index:.2f} "
+          f"rx={s.frames_rx} tx={s.frames_tx} fail={s.decode_failures}")
+    for m in decoded:
+        print("message:", m)
+    return 0
+
+
 def cmd_info(args) -> int:
     print(f"ria_tpu_torch {__version__} — HF modem framework, PyTorch/CUDA port "
           f"(device {args.device})")
@@ -254,6 +318,12 @@ def main(argv=None) -> int:
     prx.add_argument("-m", "--modulation", default=None)
     prx.add_argument("-r", "--rate", default=None)
     prx.set_defaults(fn=cmd_prx)
+
+    mon = sub.add_parser("monitor", parents=[common],
+                         help="ASCII waterfall + status over f32 stream")
+    mon.add_argument("input", help="file path or - for stdin")
+    mon.add_argument("-s", "--src", default="NOCALL")
+    mon.set_defaults(fn=cmd_monitor)
 
     info = sub.add_parser("info", parents=[common], help="print modem configuration")
     info.set_defaults(fn=cmd_info)

@@ -11,7 +11,11 @@ from __future__ import annotations
 
 import numpy as np
 
+import torch
+
 from ria_tpu_torch.fec.ldpc_matrix import CODE_PARAMS, LDPCCode
+from ria_tpu_torch.sim.channel import ChannelConfig, ChannelState
+from ria_tpu_torch.utils.device import resolve_device
 from ria_tpu_torch.sync.chirp import ChirpConfig
 from ria_tpu_torch.wave.mc_dpsk import MCDPSKConfig
 
@@ -45,3 +49,26 @@ def mcdpsk_config_from_dict(d: dict) -> MCDPSKConfig:
     if "chirp" in fields:
         fields["chirp"] = ChirpConfig(**fields["chirp"])
     return MCDPSKConfig(**fields)
+
+
+def channel_config_from_dict(d: dict) -> ChannelConfig:
+    """The port's ChannelConfig from ``dataclasses.asdict`` of a reference
+    ``ChannelConfig``."""
+    return ChannelConfig(**d)
+
+
+def channel_state_from_arrays(h1, h2, x_tail, i_tail, q_tail, cfo_phase, mix_phase,
+                              last_rms, device: str | torch.device = "cuda") -> ChannelState:
+    """The port's ChannelState on ``device`` from the eight fields of a
+    reference ``ChannelState`` as numpy arrays (in its field order): a
+    stream stopped in the reference package carries on in the port."""
+    dev = resolve_device(device)
+
+    def real(a):
+        return torch.as_tensor(np.array(a, np.float32), device=dev)
+
+    def cplx(a):
+        return torch.as_tensor(np.array(a, np.complex64), device=dev)
+
+    return ChannelState(cplx(h1), cplx(h2), real(x_tail), real(i_tail), real(q_tail),
+                        real(cfo_phase), real(mix_phase), real(last_rms))

@@ -32,7 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ria_tpu_torch.utils.device import resolve_device
+from ria_tpu_torch.utils.device import resolve_device, wide_cumsum
 
 
 @dataclass(frozen=True)
@@ -282,7 +282,7 @@ class ChirpDetector(nn.Module):
         X = torch.fft.fft(x.to(torch.complex64), self.nfft)
         corr = torch.fft.ifft(X * tmpl_fft)
         zero = torch.zeros(x.shape[:-1] + (1,), dtype=x.dtype, device=x.device)
-        csum = torch.cat([zero, torch.cumsum(x * x, dim=-1)], dim=-1)
+        csum = torch.cat([zero, wide_cumsum(x * x, dim=-1)], dim=-1)
         num_lags = self.n - self.chirp_len
         win = csum[..., self.chirp_len : self.chirp_len + num_lags] - csum[..., :num_lags]
         # -60 dB energy floor: windows holding only numeric residue of
@@ -321,7 +321,7 @@ class ChirpDetector(nn.Module):
         ci = y @ Mi
         mag2 = cr * cr + ci * ci                       # [B, 2R+1]
         zero = torch.zeros(y.shape[:-1] + (1,), dtype=y.dtype, device=y.device)
-        csum = torch.cat([zero, torch.cumsum(y * y, dim=-1)], dim=-1)
+        csum = torch.cat([zero, wide_cumsum(y * y, dim=-1)], dim=-1)
         win = csum[..., self.chirp_len : self.chirp_len + 2 * R + 1] - csum[..., : 2 * R + 1]
         win_floor = 1e-6 * torch.amax(win, dim=-1, keepdim=True)
         corr2 = mag2 / torch.clamp_min(torch.maximum(win, win_floor) * self.energy, 1e-20)
@@ -347,7 +347,7 @@ class ChirpDetector(nn.Module):
         xb = x[:, : nblk * D]
         blk = (xb * xb).reshape(B, nblk, D).sum(-1)
         zero = torch.zeros((B, 1), dtype=x.dtype, device=x.device)
-        csum = torch.cat([zero, torch.cumsum(blk, dim=-1)], dim=-1)
+        csum = torch.cat([zero, wide_cumsum(blk, dim=-1)], dim=-1)
         idx = torch.arange(nb, dtype=torch.int32, device=x.device) * D
         valid = idx < num_lags
         idx_b = torch.clamp_max(idx // D, max(nblk - chirp_len // D - 1, 0)).long()

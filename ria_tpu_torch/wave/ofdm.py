@@ -50,7 +50,7 @@ from torch import nn
 
 from ria_tpu_torch.dsp.hilbert import analytic_signal
 from ria_tpu_torch.sync.chirp import window_slice
-from ria_tpu_torch.utils.device import resolve_device
+from ria_tpu_torch.utils.device import resolve_device, wide_cumsum
 from ria_tpu_torch.utils.mt19937 import MT19937
 
 PILOT_RNG_SEED = 0x50494C54
@@ -365,7 +365,7 @@ def _rdiv(x: torch.Tensor, c: float) -> torch.Tensor:
 
 def _sliding(x: torch.Tensor, w: int) -> torch.Tensor:
     """Sliding sums of w samples along the last axis (cumsum difference)."""
-    cs = torch.cat([torch.zeros_like(x[..., :1]), torch.cumsum(x, dim=-1)], dim=-1)
+    cs = torch.cat([torch.zeros_like(x[..., :1]), wide_cumsum(x, dim=-1)], dim=-1)
     return cs[..., w:] - cs[..., :-w]
 
 

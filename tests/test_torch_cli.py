@@ -1,7 +1,8 @@
 """The port's CLI on the CPU (``--device cpu``): the cases of
-tests/test_cli.py without ``monitor``, the port's ``ptx`` files against the
-reference's (within 1e-5) and decoded by the reference's ``prx``, the
-reference's ``ptx`` files decoded by the port's ``prx``, and pure noise.
+tests/test_cli.py, the port's ``ptx`` files against the reference's (within
+1e-5) and decoded by the reference's ``prx``, the reference's ``ptx`` files
+decoded by the port's ``prx``, pure noise, ``monitor`` against the
+reference's, and the session simulator's command line.
 """
 
 import subprocess
@@ -121,6 +122,56 @@ def test_ptx_to_stdout_and_prx_from_stdin(tmp_path):
 
 
 def test_monitor_and_gui_are_not_registered():
-    for cmd in ("monitor", "gui"):
-        with pytest.raises(SystemExit):
-            t_main(CPU + [cmd, "x.f32"])
+    """``gui`` waits for the runtime's TUI and stays unregistered; ``monitor``
+    is registered since the station layer was ported (a missing file is an
+    OSError, not an unknown command)."""
+    with pytest.raises(SystemExit):
+        t_main(CPU + ["gui", "x.f32"])
+    with pytest.raises(FileNotFoundError):
+        t_main(CPU + ["monitor", "no-such-recording.f32"])
+
+
+def test_monitor_matches_reference(tmp_path, capsys):
+    """Mirror of tests/test_cli.py::test_monitor_waterfall_and_decode: the
+    reference's ``ptx`` file through both packages' ``monitor`` prints the
+    same waterfall, status line and message."""
+    f32 = tmp_path / "mon.f32"
+    assert j_main(["ptx", "monitor smoke", "-s", "W1AW", "-d", "VE3ABC", "-o", str(f32)]) == 0
+    capsys.readouterr()
+    assert j_main(["monitor", str(f32), "-s", "VE3ABC"]) == 0
+    want = capsys.readouterr().out
+    assert t_main(CPU + ["monitor", str(f32), "-s", "VE3ABC"]) == 0
+    got = capsys.readouterr().out
+    assert "state=" in got and "Hz" in got and "monitor smoke" in got
+    assert got == want
+
+
+def test_simulator_cli_on_the_cpu(capsys):
+    """``python -m ria_tpu_torch.tools.cli_simulator --device cpu``: one
+    seed of a full session at 12 dB AWGN."""
+    from ria_tpu_torch.tools.cli_simulator import main as sim_main
+
+    assert sim_main(["--device", "cpu", "--snr", "12", "--channel", "awgn",
+                     "--seed-base", "7"]) == 0
+    out = capsys.readouterr().out
+    assert "RESULT: 1/1 seeds passed" in out and "device cpu" in out
+    assert "2/2 msgs" in out and "disconnect=clean" in out
+
+
+def test_monitor_and_simulator_default_to_the_card(tmp_path, capsys):
+    """Without ``--device``, ``monitor`` and the simulator run on the card:
+    with no card they raise before doing anything, with one they run there."""
+    from ria_tpu_torch.tools.cli_simulator import main as sim_main
+
+    f32 = tmp_path / "noise.f32"
+    np.zeros(48000, np.float32).tofile(f32)
+    sim_args = ["--snr", "12", "--channel", "awgn", "--seed-base", "7"]
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            t_main(["monitor", str(f32)])
+        with pytest.raises(RuntimeError, match="cuda"):
+            sim_main(sim_args)
+        return
+    assert t_main(["monitor", str(f32)]) == 0
+    assert sim_main(sim_args) == 0
+    assert "device cuda" in capsys.readouterr().out

@@ -15,8 +15,11 @@ from ria_tpu_torch.fec import ldpc as T
 from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch import cli
 from ria_tpu_torch.phy import frame_v2
+from ria_tpu_torch.phy import adaptive, station
 from ria_tpu_torch.phy.modem import AudioBuffer, MCDPSKModem
 from ria_tpu_torch.phy.pipeline import make_ofdm_rx_pipeline, make_rx_pipeline, make_tx_pipeline
+from ria_tpu_torch.sim import channel as sim_channel
+from ria_tpu_torch.sim import simulator
 from ria_tpu_torch.sync import css, zc
 from ria_tpu_torch.tools import waveform_paths
 from ria_tpu_torch.wave import afdm, api, dpsk, mfsk, ofdm, otfs
@@ -85,9 +88,25 @@ CALLS = {
     "MCDPSKModem": lambda: MCDPSKModem().device,
     "AudioBuffer": lambda: AudioBuffer(np.zeros(8, np.float32)).samples,
     "_control_crc_gate": lambda: _gate_launches(),
+    "Station": lambda: station.Station("W1AW").handshake_wf.device,
+    "DualStationSim": lambda: simulator.DualStationSim().state["ab"].last_rms,
+    "GeneratorDraws": lambda: sim_channel.GeneratorDraws(1).init()["h1"],
+    "init_channel_state": lambda: sim_channel.init_channel_state(
+        sim_channel.poor(), {"h1": np.zeros(2), "h2": np.zeros(2)}).h1,
+    "apply_channel": lambda: sim_channel.apply_channel(
+        np.ones(64, np.float32), sim_channel.awgn(), {"noise": np.zeros(64)}).samples,
+    "apply_channel_stream": lambda: _stream_block(),
+    "tx_post_process": lambda: _launch_free(adaptive.tx_post_process(np.ones(64, np.float32))),
     "afdm.modulate_block": lambda: _launch_free(afdm.modulate_block(
         np.ones(64, np.complex64), afdm.AFDMConfig())),
 }
+
+
+def _stream_block():
+    cfg = sim_channel.awgn()
+    state = sim_channel.init_channel_state(cfg, {"h1": np.zeros(2), "h2": np.zeros(2)})
+    return sim_channel.apply_channel_stream(np.ones(64, np.float32), cfg, state,
+                                            {"noise": np.zeros(64)})[0].samples
 
 
 def _gate_launches():

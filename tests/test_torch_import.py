@@ -29,6 +29,13 @@ def test_port_imports_without_jax():
         "import ria_tpu_torch.dsp.snr, ria_tpu_torch.phy.channel_probe, ria_tpu_torch.phy.modem\n"
         "import ria_tpu_torch.wave.selection, ria_tpu_torch.wave.api, ria_tpu_torch.wave.afdm\n"
         "import ria_tpu_torch.cli\n"
+        "import ria_tpu_torch.dsp.fir, ria_tpu_torch.dsp.windows, ria_tpu_torch.dsp.util\n"
+        "import ria_tpu_torch.dsp.nco, ria_tpu_torch.sim.channel, ria_tpu_torch.sim.simulator\n"
+        "import ria_tpu_torch.utils.logging, ria_tpu_torch.protocol.arq\n"
+        "import ria_tpu_torch.protocol.connection, ria_tpu_torch.protocol.file_transfer\n"
+        "import ria_tpu_torch.phy.adaptive, ria_tpu_torch.phy.legacy_v1, ria_tpu_torch.phy.station\n"
+        "import ria_tpu_torch.runtime.monitor, ria_tpu_torch.tools.cli_simulator\n"
+        "import ria_tpu_torch.tools.session_paths\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ria_tpu.')))\n"
         "assert not bad, bad\n"
@@ -55,3 +62,21 @@ def test_cli_runs_without_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert "MC-DPSK" in proc.stdout and "device cpu" in proc.stdout
+
+
+def test_simulator_cli_runs_without_jax():
+    """``python -m ria_tpu_torch.tools.cli_simulator --device cpu`` with JAX
+    made unimportable: a full session needs none of it."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['ria_tpu'] = None\n"
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "sys.argv = ['cli_simulator', '--device', 'cpu', '--snr', '12', '--seed-base', '7']\n"
+        "import runpy\n"
+        "runpy.run_module('ria_tpu_torch.tools.cli_simulator', run_name='__main__')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert "RESULT: 1/1 seeds passed" in proc.stdout, proc.stdout + proc.stderr

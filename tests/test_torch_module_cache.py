@@ -159,3 +159,17 @@ def test_second_rx_frame_of_a_length_constructs_no_module(mode, mod, rate, light
     else:
         wf.rx_frame(longer, light=light)
     assert constructed[0] == before + detectors
+
+
+def test_second_session_constructs_no_module(constructed):
+    """A second full session (S1: PING, CONNECT, a message each way,
+    DISCONNECT over 12 dB AWGN) meets only windows and frame lengths the
+    first one met: its sync searches, demodulators and decoders build no
+    module."""
+    from ria_tpu_torch.tools import session_paths as S
+
+    first = S.run(S.SESSIONS["S1"], device="cpu")
+    before = constructed[0]
+    second = S.run(S.SESSIONS["S1"], device="cpu")
+    assert constructed[0] == before, f"{constructed[0] - before} modules built"
+    assert first["messages"] == second["messages"] == 2 and second["ticks"] == first["ticks"]
