@@ -64,6 +64,26 @@ these phases, each printing its lines and raising on failure:
    p90), the tick split into channel, sync search, header peek, frame decode
    and the rest (host clock, card synchronised), ``decode_time_ms_avg``, K1
    launches and their batch sizes, and the phase's own seconds;
+4f. host-control plane (``ria_tpu_torch.tools.host_paths``) with the default
+   device: the native runtime library (``native/ria_native.cpp``, g++ at
+   first use; its build time) loads through ``native.require()``; H1, two
+   modems driven only over TCP (``DualModemTcp(awgn(15), seed=42)``, ports
+   picked by the system: the reference's self test, then a compressed and
+   AES-256 encrypted 2,048-byte message on a second connection, then
+   ``RAWTX``) in lock step with the CPU port, both fed one CPU generator's
+   draws (seeds 42, 43), every tick equal (stations, engine states, command
+   replies, event lines, data-port bytes; SNR within 1e-3 dB), both payloads
+   out of B's data port byte for byte; an attached console reading H1's
+   STATUS; H2, the threaded continuous session (two station threads on the
+   card, the native ring buffers and Watterson channel), connected and
+   delivering within 120 s; H3, ``cli.main(["gui", "--sim", ...,
+   "--frames", "10"])`` printing its frame, and a console session (connect,
+   a composed message the virtual peer receives).  Every K1 launch of the
+   phase is held against the plain decoder, and K2 is never launched.  Per
+   run: ticks, wall s, audio s per wall s, ms per tick (median, p90; per
+   thread for H2, with how often its backpressure wait ran), K1 launches and
+   their batch sizes; for H1 the median ms from a command's send to its reply
+   and each payload's ticks from data port in to data port out;
 5. A/B entry point: ``ria_tpu_torch.tools.ldpc_bench`` at its default size
    (R1/4, B = 512, -1 dB), K1, K2 and the plain decoder reporting the same
    success set and bit accuracy, with K2's launch count from that run; then
@@ -94,8 +114,9 @@ these phases, each printing its lines and raising on failure:
    MC-DPSK and OFDM_CHIRP one trace of a ``rx_frame``: device kernels, busy
    share, host-device synchronisations and copies; K1 at the sessions' batch
    sizes (device time, bound and share) and one trace of an S1 tick that
-   decodes a frame;
-8. a JSON line of the kernels, then the last line
+   decodes a frame; K1 at phase 4f's batch sizes (device time, bound, share);
+8. a JSON line of the sessions, one of phase 4f's runs, one of the waveform
+   classes' ``rx_frame`` times, a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Any failure ends the run with a non-zero exit code and no result line.
@@ -654,23 +675,222 @@ def session_phase(card: str) -> dict:
             "decode_tick_ms": decode_tick_ms}
 
 
+def tick_stats(tick_ms: list) -> str:
+    return (f"ms per tick median {float(np.median(tick_ms)):.2f}, p90 "
+            f"{float(np.percentile(tick_ms, 90)):.2f}")
+
+
+def host_phase(card: str) -> dict:
+    """Phase 4f, the host-control plane with the default device: the native
+    runtime library, H1 (two modems driven only over TCP) in lock step with
+    the CPU port, an attached console reading H1's STATUS, H2 (the threaded
+    continuous session) and H3 (``gui --sim --frames`` headless, and a
+    console session).  Every K1 launch of the phase is held against the plain
+    decoder; K2 is never launched.  Returns {"runs": {run: its summary},
+    "launches": {run: (K1, K2)}, "calls": {(B, k): (decoder, LLRs, factors)}
+    one recorded K1 call per batch size, "k1_err"}."""
+    from ria_tpu_torch import cli
+    from ria_tpu_torch.protocol.connection import ConnectionState
+    from ria_tpu_torch.runtime import native
+    from ria_tpu_torch.runtime.tui import AttachedConsole, TuiApp
+    from ria_tpu_torch.sim.channel import GeneratorDraws, awgn
+    from ria_tpu_torch.tools import host_paths as H
+    from ria_tpu_torch.tools import waveform_frames as F
+    from ria_tpu_torch.tools.dual_modem_tcp import DualModemTcp
+
+    t_phase = time.perf_counter()
+    built = native.build()
+    native.require()
+    log(f"[4f host] native runtime library {built.path.name}: g++ "
+        f"{built.seconds:.2f} s ({'built now' if built.seconds else 'already built'}); "
+        "native.require() loaded it")
+    runs, launches, rep_calls, k1_err = {}, {}, {}, 0.0
+
+    def held(name: str, k1: int, k2: int, calls: list) -> dict:
+        nonlocal k1_err
+        launches[name] = (k1, k2)
+        if len(calls) != k1 or k2:
+            raise AssertionError(f"{name}: K1 launches {k1} ({len(calls)} recorded), K2 {k2}")
+        rows = F.hold_k1_calls(calls, name, DRIFT_AFTER)
+        for dec, llrs, factors, _ in calls:
+            rep_calls.setdefault((llrs.shape[0], dec.k), (dec, llrs, factors))
+        iters = [i for r in rows for i in r["iterations"]]
+        err = max((r["max_abs_err"] for r in rows), default=0.0)
+        k1_err = max(k1_err, err)
+        sizes = sorted({r["B"] for r in rows})
+        drifted = [d for r in rows for d in r["drifted"]]
+        log(f"[4f host] {name}: K1 launches {k1} at B in {sizes}, iterations up to "
+            f"{max(iters) if iters else 0}, K2 launches {k2}; K1 vs plain: no row's outcome "
+            f"differing, max |llr err| {err:.3g} (limit {F.LLR_TOL:g})"
+            + ("" if not drifted else f"; {len(drifted)} rows drifting after equal outcomes"))
+        return {"k1_launches": k1, "k1_batch_sizes": sizes, "k1_max_abs_err": err,
+                "k1_max_iterations": max(iters) if iters else 0}
+
+    # H1: the card's stacks and the CPU port's, in lock step, both fed one
+    # CPU generator's draws; the card's run is the default device's.
+    def dual_modem(device=None):
+        kw = {} if device is None else {"device": device}
+        draws = tuple(GeneratorDraws(seed, "cuda" if device is None else device, "cpu")
+                      for seed in (H.H1_SEED, H.H1_SEED + 1))
+        return DualModemTcp(awgn(H.H1_SNR_DB), seed=H.H1_SEED, base_port_a=0, base_port_b=0,
+                            draws=draws, **kw)
+
+    card_dm, cpu_dm = dual_modem(), dual_modem("cpu")
+    try:
+        if card_dm.sim.device.type != "cuda":
+            raise AssertionError("DualModemTcp's default device is not the card")
+        t0 = time.perf_counter()
+        lock, k1, k2, calls = F.counted_k1(lambda: H.lock_step(
+            [card_dm, cpu_dm], [ConnectionState, ConnectionState],
+            synchronize=torch.cuda.synchronize))
+        out = lock["outs"][0]
+        outcome = H.check_outcome(out)
+        data_b = lock["clients"][0].data_rx[1]
+        if data_b != H.SELF_TEST_PAYLOAD + H.MESSAGE + H.RAWTX_TEXT.encode():
+            raise AssertionError(f"H1: B's data port gave {len(data_b)} bytes that differ")
+        tick_ms = lock["tick_ms"][0]
+        wall = sum(tick_ms) / 1e3
+        reply_ms = lock["reply_ms"][0]
+        log(f"[4f host] H1 awgn({H.H1_SNR_DB:g}) seed {H.H1_SEED}, card vs CPU port: "
+            f"{lock['ticks']} ticks equal (states, links, counters, ring, pending sync, engine "
+            f"states, replies, events, data-port bytes), max |snr err| "
+            f"{lock['max_snr_err']:.3g} dB (limit 1e-3); the CPU port's run "
+            f"{sum(lock['tick_ms'][1]) / 1e3:.2f} s of {time.perf_counter() - t0:.2f} s")
+        log(f"[4f host] H1: {outcome}; {len(data_b)} bytes out of B's data port byte for byte")
+        log(f"[4f host] H1 on the card: {lock['ticks']} ticks ({lock['ticks'] * 0.2:.1f} s of "
+            f"audio) in {wall:.2f} s, {lock['ticks'] * 0.2 / wall:.2f} audio s per wall s; "
+            f"{tick_stats(tick_ms)}; command send -> reply median {np.median(reply_ms):.3f} ms "
+            f"over {len(reply_ms)} commands; payload ticks data port in -> out "
+            f"{out['payload_ticks']} ({card})")
+        runs["H1"] = {
+            "ticks": lock["ticks"], "links": out["link"], "wall_s": wall,
+            "audio_s_per_wall_s": lock["ticks"] * 0.2 / wall,
+            "tick_ms_median": float(np.median(tick_ms)),
+            "tick_ms_p90": float(np.percentile(tick_ms, 90)),
+            "reply_ms_median": float(np.median(reply_ms)), "commands": len(reply_ms),
+            "payload_ticks": out["payload_ticks"], "max_snr_err": lock["max_snr_err"],
+            **held("H1", k1, k2, calls)}
+        # An attached console on H1's command port reads STATUS.
+        hi = card_dm.ifaces[0]
+        con = AttachedConsole(command_port=hi.cmd_srv.port, data_port=hi.data_srv.port)
+        try:
+            for _ in range(200):
+                hi.poll(0.005)
+                con.step()
+                if con.status:
+                    break
+            frame = "\n".join(con.build_frame())
+        finally:
+            con.close()
+        if con.status.get("state") != "DISCONNECTED" or "attached console" not in frame:
+            raise AssertionError(f"H3 attached console: status {con.status}")
+        log(f"[4f host] H3 attached console on H1's command port: STATUS {con.status}")
+    finally:
+        card_dm.close()
+        cpu_dm.close()
+
+    # H2: two station threads on the card against the native air.
+    h2, k1, k2, calls = F.counted_k1(H.threaded_session)
+    if h2["sim"].device.type != "cuda":
+        raise AssertionError("ContinuousAudioSimulator's default device is not the card")
+    if not h2["ok"]:
+        raise AssertionError(f"H2: not delivered within 120 s: {h2['got']}, ticks {h2['ticks']}")
+    per = {d: {"ticks": h2["ticks"][d], "audio_s_per_wall_s": h2["ticks"][d] * 0.1 / h2["wall_s"],
+               "tick_ms_median": float(np.median(h2["tick_ms"][d])),
+               "tick_ms_p90": float(np.percentile(h2["tick_ms"][d], 90)),
+               "backpressure_waits": h2["backpressure_waits"][d]} for d in ("ab", "ba")}
+    runs["H2"] = {"wall_s": h2["wall_s"], "connected_at_s": h2["connected_at_s"],
+                  "threads": per, **held("H2", k1, k2, calls)}
+    log(f"[4f host] H2 awgn(12) seed 5, two station threads on the card: connected after "
+        f"{h2['connected_at_s']:.2f} s, {h2['got']} delivered in {h2['wall_s']:.2f} s (bound "
+        "120 s); " + "; ".join(
+            f"{'ALPHA' if d == 'ab' else 'BRAVO'} thread {p['ticks']} ticks, "
+            f"{p['audio_s_per_wall_s']:.2f} audio s per wall s, {tick_stats(h2['tick_ms'][d])}, "
+            f"backpressure wait ran {p['backpressure_waits']} times" for d, p in per.items())
+        + f" ({card})")
+
+    # H3: the operator console headless, with the default device.
+    frames = 10
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        (rc, k1, k2, calls) = F.counted_k1(lambda: cli.main(
+            ["gui", "--sim", "--channel", "awgn", "--snr", "15", "--frames", str(frames)]))
+    gui_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    if rc != 0 or "operator console" not in text:
+        raise AssertionError(f"H3: gui returned {rc}: {text[:400]}")
+    runs["H3 gui"] = {"frames": frames, "wall_s": gui_s, **held("H3 gui", k1, k2, calls)}
+    log(f"[4f host] H3 gui --sim --frames {frames}: {gui_s:.2f} s; its frame:")
+    for line in text.rstrip().splitlines():
+        log("  | " + line)
+    app = TuiApp(mycall="W1AW", sim_channel=awgn(18.0), seed=7)
+    if app.station.device.type != "cuda":
+        raise AssertionError("TuiApp's default device is not the card")
+
+    def console_session():
+        ticks = []
+        app.handle_key("c")
+        for _ in range(80):
+            t = time.perf_counter()
+            app.step()
+            torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t) * 1e3)
+            if app.station.conn.state.name == "CONNECTED":
+                break
+        for ch in ":hello tui\n":
+            app.handle_key(ch)
+        for _ in range(60):
+            t = time.perf_counter()
+            app.step()
+            torch.cuda.synchronize()
+            ticks.append((time.perf_counter() - t) * 1e3)
+            if ("peer", "hello tui") in app.state.messages:
+                break
+        return ticks
+
+    ticks, k1, k2, calls = F.counted_k1(console_session)
+    if ("peer", "hello tui") not in app.state.messages:
+        raise AssertionError(f"H3 console session: {app.state.messages}")
+    runs["H3 console"] = {"ticks": len(ticks), "wall_s": sum(ticks) / 1e3,
+                          "tick_ms_median": float(np.median(ticks)),
+                          "tick_ms_p90": float(np.percentile(ticks, 90)),
+                          **held("H3 console", k1, k2, calls)}
+    log(f"[4f host] H3 console session (c, ':hello tui'): the peer got it after {len(ticks)} "
+        f"ticks, {sum(ticks) / 1e3:.2f} s, {tick_stats(ticks)}, SNR "
+        f"{app.monitor.status().snr_db:.1f} dB, {len(app.monitor.constellation.snapshot())} "
+        f"constellation points ({card})")
+    log(f"[4f host] phase 4f took {time.perf_counter() - t_phase:.1f} s")
+    return {"runs": runs, "launches": launches, "calls": rep_calls, "k1_err": k1_err,
+            "gpp_s": built.seconds}
+
+
+def k1_at_sizes(rep_calls: dict, where: str, card: str) -> dict:
+    """Phase 7: K1 at each batch size a phase launched it with (device time,
+    bound, share).  Returns {"B=.. k=..": (device us, bound us)}."""
+    from ria_tpu_torch.utils.timing import kernel_us
+
+    k1_by_b = {}
+    for (B, k), (dec, x, f) in sorted(rep_calls.items()):
+        us, how = kernel_us(lambda: dec(x, f), "ldpc_bp_kernel")
+        iters = dec(x, f).iterations
+        b_us, b_by = bound_us(dec, "K1", B, int(iters.sum()))
+        k1_by_b[f"B={B} k={k}"] = (us, b_us)
+        log(f"[7 timing] K1 at a {where} size B={B}, k={k} (iterations "
+            f"{iteration_counts(iters.tolist())}): {us:.2f} us per launch ({how}), bound "
+            f"{b_us:.3f} us ({b_by}), {b_us / us:.2%} of it reached ({card})")
+    return k1_by_b
+
+
 def time_sessions(sessions: dict, card: str) -> dict:
     """Phase 7, the sessions: K1 at each batch size the sessions launched it
     with (device time, bound, share), and one profiler trace of the S1 tick
     that first decodes a frame, replayed on a fresh simulator.  Returns
     {B: (device us, bound us)} of the R1/4 and other codes' calls."""
     from ria_tpu_torch.tools import session_paths as S
-    from ria_tpu_torch.utils.timing import kernel_us, trace_syncs
+    from ria_tpu_torch.utils.timing import trace_syncs
 
-    k1_by_b = {}
-    for (B, k), (dec, x, f) in sorted(sessions["calls"].items()):
-        us, how = kernel_us(lambda: dec(x, f), "ldpc_bp_kernel")
-        iters = dec(x, f).iterations
-        b_us, b_by = bound_us(dec, "K1", B, int(iters.sum()))
-        k1_by_b[f"B={B} k={k}"] = (us, b_us)
-        log(f"[7 timing] K1 at a session's size B={B}, k={k} (iterations "
-            f"{iteration_counts(iters.tolist())}): {us:.2f} us per launch ({how}), bound "
-            f"{b_us:.3f} us ({b_by}), {b_us / us:.2%} of it reached ({card})")
+    k1_by_b = k1_at_sizes(sessions["calls"], "session's", card)
     s = S.SESSIONS["S1"]
     tick = sessions["decode_tick"]
     sim, gen = S.replay_to(s, tick, draws=S.generator_draws(s, "cuda", "cpu"))
@@ -943,6 +1163,10 @@ def main() -> int:
     sessions = session_phase(card)
     max_err["K1"] = max([max_err["K1"]] + [r["k1_max_abs_err"] for r in sessions["runs"].values()])
 
+    # -- 4f. host-control plane ----------------------------------------------
+    host = host_phase(card)
+    max_err["K1"] = max(max_err["K1"], host["k1_err"])
+
     # -- 5. A/B entry point ---------------------------------------------------
     log(f"[5 A/B] python -m ria_tpu_torch.tools.ldpc_bench {' '.join(BENCH_ARGS)}")
     ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
@@ -1183,6 +1407,7 @@ def main() -> int:
 
     k1_small = trace_waveform_api(api, api_ms, card, dev)
     k1_sessions = time_sessions(sessions, card)
+    k1_host = k1_at_sizes(host["calls"], "phase-4f", card)
 
     # The serial floor: one codeword alone for all 50 iterations.
     ab_k1 = dec(ab_llr, ab_fac)
@@ -1213,6 +1438,7 @@ def main() -> int:
         by_path.update({path: run[2][i] for path, run in wpaths.items()})
         by_path.update({f"api {tag}": n[i] for tag, n in api["launches"].items()})
         by_path.update({f"session {name}": n[i] for name, n in sessions["launches"].items()})
+        by_path.update({f"host {name}": n[i] for name, n in host["launches"].items()})
         kernels.append({
             "name": "ldpc_bp" if name == "K1" else "ldpc_bp_v1", "route": "cuda",
             "source": source, "replaces": replaces, "launches": n_launch,
@@ -1228,7 +1454,11 @@ def main() -> int:
         for B, t in k1_small.items()}
     kernels[0]["session_us_by_batch"] = {
         b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_sessions.items()}
+    kernels[0]["host_us_by_batch"] = {
+        b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_host.items()}
     log(json.dumps({"sessions": sessions["runs"], "card": card}))
+    log(json.dumps({"host_control": host["runs"], "native_gpp_s": host["gpp_s"],
+                    "card": card}))
     # The whole call on the host's clock: the API's number, not a kernel's.
     log(json.dumps({"rx_frame_ms_by_class": {name: t[0] for name, t in api_ms.items()},
                     "spectral_snr_ms_in_call_by_class": {name: t[3] for name, t in api_ms.items()},

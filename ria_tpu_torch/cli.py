@@ -1,11 +1,16 @@
-"""``ria`` command-line tool of the PyTorch port: frame TX/RX, monitor and info.
+"""``ria`` command-line tool of the PyTorch port: frame TX/RX, monitor, the
+operator console and info.
 
 Port of ``ria_tpu/cli.py``, which mirrors the reference CLI (src/main.cpp):
 ``ptx`` renders a frame (text, ping, connect, disconnect) to float32 samples
 on stdout or a file; ``prx`` decodes float32 samples from a file or stdin and
 prints parsed frames; ``monitor`` streams a recording through a ``Station``
 in quarter-second blocks and prints an ASCII waterfall, the decode status
-and every message; ``info`` prints the modem configuration.  Flags:
+and every message; ``gui`` runs the operator console (``runtime/tui.py``:
+``--sim`` embeds a virtual peer behind a Watterson channel, ``--frames N``
+steps N blocks headless and prints one frame, ``--attach HOST:PORT`` drives
+a running modem's host interface); ``info`` prints the modem configuration.
+Flags:
 -s/-d callsigns, -w waveform, -m modulation, -r rate, -o output, and
 ``--device`` (default ``cuda``: the sync, demodulation and LDPC decode run on
 the card, and without one the command raises; ``--device cpu`` runs them on
@@ -16,6 +21,7 @@ Usage:
   python -m ria_tpu_torch.cli ptx "hello world" -s W1AW -d VE3ABC -o tx.f32
   python -m ria_tpu_torch.cli prx tx.f32
   python -m ria_tpu_torch.cli monitor tx.f32
+  python -m ria_tpu_torch.cli gui --sim --frames 20
   python -m ria_tpu_torch.cli --device cpu info
 """
 
@@ -276,6 +282,53 @@ def cmd_monitor(args) -> int:
     return 0
 
 
+def cmd_gui(args) -> int:
+    """Live operator dashboard (reference ria_gui; curses TUI here).
+
+    --sim embeds a virtual peer station behind a Watterson channel
+    (reference `ria_gui -sim`); without it the station runs on a
+    runtime.audio backend (loopback by default, sounddevice if available).
+    The stations run on ``args.device``.
+    """
+    from ria_tpu_torch.runtime.tui import TuiApp
+
+    if args.attach:
+        from ria_tpu_torch.runtime.tui import AttachedConsole
+
+        host, _, port = args.attach.partition(":")
+        cport = int(port or 8300)
+        con = AttachedConsole(host=host or "127.0.0.1",
+                              command_port=cport, data_port=cport + 1)
+        if args.frames:
+            for _ in range(args.frames):
+                con.step()
+            print("\n".join(con.build_frame()))
+            con.close()
+            return 0
+        con.run_curses()  # pragma: no cover - terminal
+        return 0
+
+    sim_channel = None
+    if args.sim:
+        from ria_tpu_torch.sim.channel import PRESETS
+
+        sim_channel = PRESETS[args.channel](args.snr)
+    backend = None
+    if not args.sim and args.audio == "device":  # pragma: no cover - hardware
+        from ria_tpu_torch.runtime.audio import SoundDeviceBackend
+
+        backend = SoundDeviceBackend()
+    app = TuiApp(mycall=args.src, peer=args.dst, sim_channel=sim_channel,
+                 seed=args.seed, audio_backend=backend, device=args.device)
+    if args.frames:  # headless render (tests / CI smoke)
+        for _ in range(args.frames):
+            app.step()
+        print("\n".join(app.build_frame()))
+        return 0
+    app.run_curses()  # pragma: no cover - terminal
+    return 0
+
+
 def cmd_info(args) -> int:
     print(f"ria_tpu_torch {__version__} — HF modem framework, PyTorch/CUDA port "
           f"(device {args.device})")
@@ -324,6 +377,24 @@ def main(argv=None) -> int:
     mon.add_argument("input", help="file path or - for stdin")
     mon.add_argument("-s", "--src", default="NOCALL")
     mon.set_defaults(fn=cmd_monitor)
+
+    gui = sub.add_parser("gui", parents=[common], help="live operator dashboard (curses TUI)")
+    gui.add_argument("-s", "--src", default="N0CALL")
+    gui.add_argument("-d", "--dst", default="VIRT")
+    gui.add_argument("--sim", action="store_true",
+                     help="embed a virtual peer behind a Watterson channel")
+    gui.add_argument("--channel", default="awgn",
+                     choices=["awgn", "good", "moderate", "poor", "flutter"])
+    gui.add_argument("--snr", type=float, default=15.0)
+    gui.add_argument("--seed", type=int, default=42)
+    gui.add_argument("--audio", default="loopback",
+                     choices=["loopback", "device"])
+    gui.add_argument("--frames", type=int, default=0,
+                     help="headless: step N blocks, print one frame, exit")
+    gui.add_argument("--attach", default=None, metavar="HOST:PORT",
+                     help="attach to a running modem's host interface "
+                          "(command port; data = port+1)")
+    gui.set_defaults(fn=cmd_gui)
 
     info = sub.add_parser("info", parents=[common], help="print modem configuration")
     info.set_defaults(fn=cmd_info)

@@ -21,11 +21,11 @@ PyTorch decoders for CPU tensors are in ``ria_tpu_torch.fec.ldpc``.
 from __future__ import annotations
 
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import NamedTuple
@@ -35,9 +35,17 @@ import torch
 
 # Kernel launches since start-up (or since a caller last reset them).  Counted
 # only where each kernel is launched, so a run can show that it went through
-# K1 (LAUNCHES) or K2 (LAUNCHES_V1).
+# K1 (LAUNCHES) or K2 (LAUNCHES_V1).  Stations decode from threads of their
+# own (``sim/continuous.py``), so each count moves under ``_COUNT_LOCK``.
 LAUNCHES = 0
 LAUNCHES_V1 = 0
+_COUNT_LOCK = threading.Lock()
+# One build at a time in a process, and one library load: two threads whose
+# first decode lands together must not start two compiles of one library.
+_BUILD_LOCK = threading.Lock()
+_LOAD_LOCK = threading.Lock()
+_LIBRARIES: dict[str, ctypes.CDLL] = {}
+_ENTRIES: dict = {}
 
 K1_THREADS = 512  # threads per K1 block: kThreads in csrc/ldpc_bp.cu
 K2_THREADS = 512  # threads per K2 block: kThreads in csrc/ldpc_bp_v1.cu
@@ -376,7 +384,14 @@ class Build(NamedTuple):
 def compile_libraries(sources: dict[str, tuple[Path, tuple[str, ...]]]) -> dict[str, Build]:
     """Compile each ``name: (source, defines)`` whose library is missing, one
     ``nvcc`` per library, all started together.  Raises with nvcc's output
-    when a compile fails."""
+    when a compile fails.  One call at a time in a process; each compile
+    writes a temporary named by process and thread and moves it into place,
+    so processes building the same library at once each leave it whole."""
+    with _BUILD_LOCK:
+        return _compile_missing(sources)
+
+
+def _compile_missing(sources: dict[str, tuple[Path, tuple[str, ...]]]) -> dict[str, Build]:
     results, procs = {}, {}
     missing = {name for name, (src, defs) in sources.items()
                if not library_path(src, defs).exists()}
@@ -387,7 +402,7 @@ def compile_libraries(sources: dict[str, tuple[Path, tuple[str, ...]]]) -> dict[
             results[name] = Build(out, "", 0.0)
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+        tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
         proc = subprocess.Popen([nvcc, *_NVCC_FLAGS, *defines, "-o", str(tmp), str(source)],
                                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         procs[name] = (proc, tmp, out, time.perf_counter())
@@ -415,9 +430,11 @@ def build() -> dict[str, Build]:
 _ARGS = {"ldpc_bp": (9, 8), "ldpc_bp_v1": (9, 8)}
 
 
-@functools.cache
 def _library(name: str) -> ctypes.CDLL:
-    return ctypes.CDLL(str(build()[name].path))
+    with _LOAD_LOCK:
+        if name not in _LIBRARIES:
+            _LIBRARIES[name] = ctypes.CDLL(str(build()[name].path))
+        return _LIBRARIES[name]
 
 
 def entry_point(lib: ctypes.CDLL, name: str):
@@ -429,9 +446,12 @@ def entry_point(lib: ctypes.CDLL, name: str):
     return fn
 
 
-@functools.cache
 def _entry(name: str):
-    return entry_point(_library(name), name)
+    lib = _library(name)
+    with _LOAD_LOCK:
+        if name not in _ENTRIES:
+            _ENTRIES[name] = entry_point(lib, name)
+        return _ENTRIES[name]
 
 
 def resources(lib: ctypes.CDLL, name: str, n: int, slots: int) -> dict[str, int]:
@@ -482,7 +502,8 @@ def bp_decode(llrs: torch.Tensor, factors: torch.Tensor, tables: K1Tables,
     global LAUNCHES
     out, launched = launch(lambda: _entry("ldpc_bp"), "K1", llrs, factors, tables, k,
                            max_iters)
-    LAUNCHES += launched
+    with _COUNT_LOCK:
+        LAUNCHES += launched
     return out
 
 
@@ -496,7 +517,8 @@ def bp_decode_v1(llrs: torch.Tensor, factors: torch.Tensor, tables: K2Tables,
     global LAUNCHES_V1
     out, launched = launch(lambda: _entry("ldpc_bp_v1"), "K2", llrs, factors, tables, k,
                            max_iters)
-    LAUNCHES_V1 += launched
+    with _COUNT_LOCK:
+        LAUNCHES_V1 += launched
     return out
 
 

@@ -1,2 +1,2 @@
-"""sim stage of the port (mirrors ria_tpu.sim): the Watterson channel and the
-dual-station simulator."""
+"""sim stage of the port (mirrors ria_tpu.sim): the Watterson channel, the
+dual-station simulator and the threaded continuous simulator."""

@@ -16,12 +16,14 @@ from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch import cli
 from ria_tpu_torch.phy import frame_v2
 from ria_tpu_torch.phy import adaptive, station
+from ria_tpu_torch.protocol.engine import ProtocolEngine
+from ria_tpu_torch.runtime import host_interface, tui
 from ria_tpu_torch.phy.modem import AudioBuffer, MCDPSKModem
 from ria_tpu_torch.phy.pipeline import make_ofdm_rx_pipeline, make_rx_pipeline, make_tx_pipeline
 from ria_tpu_torch.sim import channel as sim_channel
-from ria_tpu_torch.sim import simulator
+from ria_tpu_torch.sim import continuous, simulator
 from ria_tpu_torch.sync import css, zc
-from ria_tpu_torch.tools import waveform_paths
+from ria_tpu_torch.tools import dual_modem_tcp, waveform_paths
 from ria_tpu_torch.wave import afdm, api, dpsk, mfsk, ofdm, otfs
 
 torch.set_num_threads(1)
@@ -99,7 +101,56 @@ CALLS = {
     "tx_post_process": lambda: _launch_free(adaptive.tx_post_process(np.ones(64, np.float32))),
     "afdm.modulate_block": lambda: _launch_free(afdm.modulate_block(
         np.ones(64, np.complex64), afdm.AFDMConfig())),
+    "DualModemTcp": lambda: _dual_modem(),
+    "ContinuousAudioSimulator": lambda: continuous.ContinuousAudioSimulator(
+        sim_channel.awgn()).bravo.handshake_wf.device,
+    "TuiApp[sim]": lambda: tui.TuiApp(sim_channel=sim_channel.awgn()).station.handshake_wf.device,
+    "TuiApp[audio]": lambda: tui.TuiApp().station.handshake_wf.device,
+    "HostInterface.RAWTX": lambda: _rawtx(),
+    "cli gui": lambda: _cli_gui(),
 }
+
+
+def _dual_modem():
+    dm = dual_modem_tcp.DualModemTcp(sim_channel.awgn(), base_port_a=0, base_port_b=0)
+    try:
+        return dm.sim.alpha.handshake_wf.device
+    finally:
+        dm.close()
+
+
+def _rawtx():
+    """A host interface over a station built with no ``device``: RAWTX's
+    waveform lies where the station's do."""
+    st = station.Station("W1AW")
+    made = []
+    inner = api.create_waveform
+    api.create_waveform = lambda *a, **kw: made.append(inner(*a, **kw)) or made[-1]
+    hi = host_interface.HostInterface(ProtocolEngine(conn=st.conn), station=st,
+                                      command_port=0, data_port=0)
+    try:
+        assert hi.handle_command("RAWTX MC_DPSK DBPSK R1_4 hi") == "OK"
+    finally:
+        api.create_waveform = inner
+        hi.close()
+    return made[0].device
+
+
+def _cli_gui():
+    """``gui --sim --frames 1`` with no --device: the console's stations lie
+    on the card."""
+    import contextlib
+    import io
+
+    made = []
+    inner = tui.TuiApp
+    tui.TuiApp = lambda *a, **kw: made.append(inner(*a, **kw)) or made[-1]
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert cli.main(["gui", "--sim", "--frames", "1"]) == 0
+    finally:
+        tui.TuiApp = inner
+    return made[0].station.handshake_wf.device
 
 
 def _stream_block():

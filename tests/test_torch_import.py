@@ -36,8 +36,16 @@ def test_port_imports_without_jax():
         "import ria_tpu_torch.phy.adaptive, ria_tpu_torch.phy.legacy_v1, ria_tpu_torch.phy.station\n"
         "import ria_tpu_torch.runtime.monitor, ria_tpu_torch.tools.cli_simulator\n"
         "import ria_tpu_torch.tools.session_paths\n"
+        "import ria_tpu_torch.protocol, ria_tpu_torch.protocol.crypto\n"
+        "import ria_tpu_torch.protocol.engine, ria_tpu_torch.runtime.native\n"
+        "import ria_tpu_torch.runtime.cat, ria_tpu_torch.runtime.audio, ria_tpu_torch.config\n"
+        "import ria_tpu_torch.runtime.host_interface, ria_tpu_torch.runtime.tui\n"
+        "import ria_tpu_torch.sim.continuous, ria_tpu_torch.tools.dual_modem_tcp\n"
+        "import ria_tpu_torch.tools.host_paths\n"
+        "import ria_tpu_torch.dsp.resampler, ria_tpu_torch.dsp.biquad\n"
         "import chip_smoke\n"
-        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'ria_tpu.')))\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'cryptography', 'tools')\n"
+        "             or m.startswith(('jax.', 'ria_tpu.', 'cryptography.', 'tools.')))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -80,3 +88,46 @@ def test_simulator_cli_runs_without_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=300)
     assert "RESULT: 1/1 seeds passed" in proc.stdout, proc.stdout + proc.stderr
+
+
+def _blocked(code: str) -> str:
+    """``code`` run with ``jax``, ``ria_tpu`` and ``cryptography`` made
+    unimportable."""
+    return ("import sys\n"
+            "for name in ('jax', 'ria_tpu', 'cryptography'):\n"
+            "    sys.modules[name] = None\n" + code)
+
+
+def test_host_control_plane_imports_without_jax_or_cryptography():
+    """The protocol engine (with its own AES), the host interface, the
+    threaded simulator and the console import where neither ``jax`` nor
+    ``cryptography`` can be imported, and the cipher runs there."""
+    code = _blocked(
+        "import ria_tpu_torch.protocol.engine, ria_tpu_torch.runtime.host_interface\n"
+        "import ria_tpu_torch.sim.continuous, ria_tpu_torch.runtime.tui\n"
+        "import ria_tpu_torch.tools.dual_modem_tcp, ria_tpu_torch.tools.host_paths\n"
+        "from ria_tpu_torch.protocol.crypto import AES256\n"
+        "aes = AES256(bytes(range(32)))\n"
+        "ct = aes.encrypt(bytes.fromhex('00112233445566778899aabbccddeeff'), bytes(16))\n"
+        "assert ct[16:32].hex() == '8ea2b7ca516745bfeafc49904b496089', ct.hex()\n"
+        "assert aes.decrypt(aes.encrypt(b'x' * 100)) == b'x' * 100\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+def test_dual_modem_tool_runs_without_jax_or_cryptography():
+    """``python -m ria_tpu_torch.tools.dual_modem_tcp --device cpu
+    --self-test`` with ``jax`` and ``cryptography`` unimportable."""
+    code = _blocked(
+        "import torch\n"
+        "torch.set_num_threads(1)\n"
+        "sys.argv = ['dual_modem_tcp', '--device', 'cpu', '--self-test']\n"
+        "import runpy\n"
+        "runpy.run_module('ria_tpu_torch.tools.dual_modem_tcp', run_name='__main__')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert "data A->B: OK" in proc.stdout, proc.stdout + proc.stderr
+    assert proc.returncode == 0, proc.stderr
