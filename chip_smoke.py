@@ -84,6 +84,24 @@ these phases, each printing its lines and raising on failure:
    thread for H2, with how often its backpressure wait ran), K1 launches and
    their batch sizes; for H1 the median ms from a command's send to its reply
    and each payload's ticks from data port in to data port out;
+4g. scale-out (``ria_tpu_torch.parallel``, ``ria_tpu_torch.tools.parallel_paths``):
+   K1 built here, then one launch of 4 ranks sharing the card (gloo; the
+   backend, world size and each rank's device printed), each given only its
+   own rows or block, running G1-G7 at the reference's production geometry:
+   the batch mesh on phase 4's chain-1 batch (G1) and on phase 4b's OFDM
+   batches (G2 #3, #4), 16 rows a rank; the stream RX (G3: 4 blocks of
+   192,000, the chirp straddling the first boundary, +5 Hz; and top_k 2 on
+   two frames, one straddling); the stream search alone (G4); the OFDM
+   stream RX (G5: DQPSK with pilots, R1/2, blocks of 3 x 48,000, 8 dB,
+   straddling); the sharded FIR (G6); the (ch=2, t=2) hybrid mesh (G7).
+   Every rank's result equal; each case against the single-process port on
+   the card (decisions exact, CFO and SNR within 1e-3, soft bits within
+   2e-3, the FIR within 1e-5 of ``np.convolve``) and against what was sent
+   (every codeword decoded); every K1 launch of every rank held against the
+   plain decoder on its own LLRs, K1 launched on every rank of a case that
+   decodes, K2 never.  Per case: K1 launches per rank and their batch
+   sizes, ms per call (CUDA events, the slowest rank's median of 7) beside
+   the same program in one process, and the phase's seconds;
 5. A/B entry point: ``ria_tpu_torch.tools.ldpc_bench`` at its default size
    (R1/4, B = 512, -1 dB), K1, K2 and the plain decoder reporting the same
    success set and bit accuracy, with K2's launch count from that run; then
@@ -114,8 +132,10 @@ these phases, each printing its lines and raising on failure:
    MC-DPSK and OFDM_CHIRP one trace of a ``rx_frame``: device kernels, busy
    share, host-device synchronisations and copies; K1 at the sessions' batch
    sizes (device time, bound and share) and one trace of an S1 tick that
-   decodes a frame; K1 at phase 4f's batch sizes (device time, bound, share);
-8. a JSON line of the sessions, one of phase 4f's runs, one of the waveform
+   decodes a frame; K1 at phase 4f's and phase 4g's batch sizes (device time,
+   bound, share);
+8. a JSON line of the sessions, one of phase 4f's runs, one of phase 4g's
+   cases, one of the waveform
    classes' ``rx_frame`` times, a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -865,6 +885,93 @@ def host_phase(card: str) -> dict:
             "gpp_s": built.seconds}
 
 
+SCALE_REPS = 7  # timed calls a case and rank in phase 4g (their median)
+
+
+def scale_out_phase(card: str, dev: torch.device) -> dict:
+    """Phase 4g, scale-out: cases G1-G7 of ``tools/parallel_paths.py`` at
+    the production geometry, on 4 ranks sharing the card.  Each rank holds
+    every K1 launch of its first call against the plain decoder; here every
+    case is held against the single-process port on the card, against what
+    was sent, and across ranks.  Returns {"cases": {case: its summary},
+    "launches": {case: ([K1 per rank], [K2 per rank])}, "calls": {(B, k):
+    (decoder, LLRs, factors)} one K1 call per batch size, "k1_err"}."""
+    from ria_tpu_torch.fec.ldpc import ldpc_decoder
+    from ria_tpu_torch.parallel import distributed
+    from ria_tpu_torch.parallel.launch import launch
+    from ria_tpu_torch.tools import parallel_paths as P
+    from ria_tpu_torch.utils.timing import cuda_ms
+
+    t_phase = time.perf_counter()
+    n = P.RANKS
+    backend = distributed.choose_backend(dev, n)
+    cases, data, sent = P.production_cases(n, device=dev)
+    log(f"[4g scale-out] {n} ranks, backend {backend}, world size {n}, rank devices "
+        f"{[str(distributed.rank_device(dev, r)) for r in range(n)]}; cases "
+        f"{[c.name for c in cases]} built in {time.perf_counter() - t_phase:.1f} s")
+    t0 = time.perf_counter()
+    outs = launch(P.run_rank, n, args=(cases, SCALE_REPS), device=dev, backend=backend,
+                  timeout_s=600.0, rank_args=[(d,) for d in P.rank_data(cases, data, n)])
+    log(f"[4g scale-out] the ranks ran in {time.perf_counter() - t0:.1f} s (start-up, first "
+        f"calls, {SCALE_REPS} timed calls a case)")
+    summary, launches, rep_calls, k1_err = {}, {}, {}, 0.0
+    for case in cases:
+        per = [o[case.name] for o in outs]
+        P.same_on_every_rank(case.name, [P.replicated(case, p["result"]) for p in per])
+        got = per[0]["result"]
+        if case.kind == "fir":
+            got = np.concatenate([p["result"] for p in per], axis=-1)
+        if case.kind == "hybrid":
+            coords = [tuple(int(c) for c in p["result"]["coords"]) for p in per]
+            if coords != [divmod(r, case.params[1]) for r in range(n)]:
+                raise AssertionError(f"{case.name}: rank coordinates {coords}")
+        errs = P.hold_single(case, got, P.single_process(case, data[case.name], got, n, dev))
+        P.check_sent(case, got, sent[case.name])
+        k1 = [p["k1_launches"] for p in per]
+        k2 = [p["k2_launches"] for p in per]
+        held = [c for p in per for c in p["k1_calls"]]
+        launches[case.name] = (k1, k2)
+        if any(k2) or len(held) != sum(k1) or (
+                case.kind not in ("stream_search", "fir") and min(k1) < 1):
+            raise AssertionError(f"{case.name}: K1 launches per rank {k1} ({len(held)} held), "
+                                 f"K2 {k2}")
+        for (B, k), (rate, iters, llrs, factors) in per[0]["k1_inputs"].items():
+            rep_calls.setdefault((B, k), (ldpc_decoder(rate, iters, dev),
+                                          torch.as_tensor(llrs, device=dev),
+                                          torch.as_tensor(factors, device=dev)))
+        err = max((c["max_abs_err"] for c in held), default=0.0)
+        k1_err = max(k1_err, err)
+        sizes = sorted({c["B"] for c in held})
+        iters = max((i for c in held for i in c["iterations"]), default=0)
+        ms = max(p["ms"] for p in per) if per[0]["ms"] is not None else None
+        one, why = P.one_rank_case(case, n)
+        single_ms = None
+        if one is not None:
+            fn, x = P.program(one, dev), data[case.name]
+            for _ in range(2):
+                fn(x)
+            single_ms = cuda_ms(lambda: fn(x), 1)[0]
+        summary[case.name] = {"k1_launches_per_rank": k1, "k1_batch_sizes": sizes,
+                              "k1_max_iterations": iters, "k1_max_abs_err": err,
+                              "ms_per_call": ms, "single_process_ms": single_ms,
+                              "vs_single_process": errs}
+        log(f"[4g scale-out] {case.name} ({case.kind}): as sent, equal on every rank; vs the "
+            "single-process port: decisions equal, " + ", ".join(
+                f"|{k} err| {v:.3g}" for k, v in errs.items())
+            + f"; K1 launches per rank {k1} at B in {sizes}, iterations up to {iters}, K2 "
+            f"launches {k2}; K1 vs plain: no row's outcome differing, max |llr err| {err:.3g}")
+        if ms is not None:
+            log(f"[4g scale-out] {case.name}: {ms:.3f} ms per call (4 ranks sharing one card, "
+                f"CUDA events, the slowest rank's median of {SCALE_REPS}); "
+                + (f"one process: {single_ms:.3f} ms (median of 7)" if single_ms is not None
+                   else f"no one-process form ({why})")
+                + f" ({card})")
+    seconds = time.perf_counter() - t_phase
+    log(f"[4g scale-out] phase 4g took {seconds:.1f} s")
+    return {"cases": summary, "launches": launches, "calls": rep_calls, "k1_err": k1_err,
+            "backend": backend, "seconds": seconds}
+
+
 def k1_at_sizes(rep_calls: dict, where: str, card: str) -> dict:
     """Phase 7: K1 at each batch size a phase launched it with (device time,
     bound, share).  Returns {"B=.. k=..": (device us, bound us)}."""
@@ -1167,6 +1274,10 @@ def main() -> int:
     host = host_phase(card)
     max_err["K1"] = max(max_err["K1"], host["k1_err"])
 
+    # -- 4g. scale-out --------------------------------------------------------
+    scale = scale_out_phase(card, dev)
+    max_err["K1"] = max(max_err["K1"], scale["k1_err"])
+
     # -- 5. A/B entry point ---------------------------------------------------
     log(f"[5 A/B] python -m ria_tpu_torch.tools.ldpc_bench {' '.join(BENCH_ARGS)}")
     ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
@@ -1408,6 +1519,7 @@ def main() -> int:
     k1_small = trace_waveform_api(api, api_ms, card, dev)
     k1_sessions = time_sessions(sessions, card)
     k1_host = k1_at_sizes(host["calls"], "phase-4f", card)
+    k1_scale = k1_at_sizes(scale["calls"], "phase-4g", card)
 
     # The serial floor: one codeword alone for all 50 iterations.
     ab_k1 = dec(ab_llr, ab_fac)
@@ -1439,6 +1551,8 @@ def main() -> int:
         by_path.update({f"api {tag}": n[i] for tag, n in api["launches"].items()})
         by_path.update({f"session {name}": n[i] for name, n in sessions["launches"].items()})
         by_path.update({f"host {name}": n[i] for name, n in host["launches"].items()})
+        by_path.update({f"scale-out {name} (sum over ranks)": sum(n[i])
+                        for name, n in scale["launches"].items()})
         kernels.append({
             "name": "ldpc_bp" if name == "K1" else "ldpc_bp_v1", "route": "cuda",
             "source": source, "replaces": replaces, "launches": n_launch,
@@ -1456,9 +1570,16 @@ def main() -> int:
         b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_sessions.items()}
     kernels[0]["host_us_by_batch"] = {
         b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_host.items()}
+    kernels[0]["scaleout_us_by_batch"] = {
+        b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_scale.items()}
+    for i, kernel in enumerate(kernels):
+        kernel["scaleout_launches_per_rank"] = {name: n[i]
+                                                for name, n in scale["launches"].items()}
     log(json.dumps({"sessions": sessions["runs"], "card": card}))
     log(json.dumps({"host_control": host["runs"], "native_gpp_s": host["gpp_s"],
                     "card": card}))
+    log(json.dumps({"scale_out": scale["cases"], "ranks": 4, "backend": scale["backend"],
+                    "phase_s": scale["seconds"], "card": card}))
     # The whole call on the host's clock: the API's number, not a kernel's.
     log(json.dumps({"rx_frame_ms_by_class": {name: t[0] for name, t in api_ms.items()},
                     "spectral_snr_ms_in_call_by_class": {name: t[3] for name, t in api_ms.items()},

@@ -1,7 +1,8 @@
 """The port's main path in one call: the MC-DPSK RX chain over a batch.
 
-Twin of ``__graft_entry__.entry()`` and ``_make_batch``.  ``entry()`` returns
-``(rx, (audio,))``: the batched RX pipeline and a batch of noisy frames for it.
+Twin of ``__graft_entry__.entry()``, ``_make_batch`` and
+``dryrun_multichip``.  ``entry()`` returns ``(rx, (audio,))``: the batched
+RX pipeline and a batch of noisy frames for it.
 The default is the small ``_tiny_cfg`` geometry of the CPU tests;
 ``production=True`` gives the geometry bench.py times as chain 1: 64 channels
 of 10-carrier DBPSK, R1/4, 4 codewords per frame, a window of
@@ -226,3 +227,47 @@ def bench_batches(device: str | torch.device = "cuda") -> BenchBatches:
     chains.append(BenchChain(_noisy_copies(llr, rng, LDPC_BENCH_VARIANTS,
                                            LDPC_BENCH_VARIANT_SIGMA), info))
     return BenchBatches(*chains)
+
+
+def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda") -> dict:
+    """Twin of ``__graft_entry__.dryrun_multichip``: run both sharded RX
+    programs, for MC-DPSK and for OFDM, on ``n_devices`` ranks (one process
+    each, :func:`ria_tpu_torch.parallel.launch.launch`):
+
+    1. the (ch x cw) batch mesh: channels data-parallel, each rank decoding
+       its own rows through K1 (``parallel/mesh.py``);
+    2. the 1D time-block stream mesh: one long stream sharded over the
+       ranks, with the halo exchange for the sync search and the
+       sequence-parallel mix-integrate (``parallel/stream.py``).
+
+    The same small geometry and seeds as the reference; the OFDM stream RX
+    needs ``n_devices`` >= 4.  Prints the backend, then the reference's
+    four lines.  Returns rank 0's results by program (G1 batch mesh, G3
+    stream, G2 OFDM batch mesh, G5 OFDM stream, as in
+    ``tools/parallel_paths.py``)."""
+    from ria_tpu_torch.parallel import distributed
+    from ria_tpu_torch.parallel.launch import launch
+    from ria_tpu_torch.tools import parallel_paths as P
+
+    dev = resolve_device(device)
+    backend = distributed.choose_backend(dev, n_devices)
+    cases, data, sent = P.dryrun_cases(n_devices)
+    ranks = [str(distributed.rank_device(dev, r)) for r in range(n_devices)]
+    print(f"dryrun_multichip({n_devices}): {n_devices} ranks, backend {backend}, "
+          f"devices {ranks}")
+    outs = launch(P.run_rank, n_devices, args=(cases, 0), device=dev, backend=backend,
+                  rank_args=[(d,) for d in P.rank_data(cases, data, n_devices)])
+    res = {name: r["result"] for name, r in outs[0].items()}
+    mc, st, of, ost = res["G1"], res["G3"], res["G2"], res["G5"]
+    print(f"dryrun_multichip({n_devices}): batch mesh detected "
+          f"{mc.detected.sum()}/{len(mc.detected)}, cw decode {mc.cw_success.mean():.2f}")
+    print(f"dryrun_multichip({n_devices}): stream mesh detected "
+          f"{bool(st['detected'])} at {int(st['start'])} (true {sent['G3']['positions'][0]}), "
+          f"cw decode {st['cw_success'].mean():.2f}")
+    print(f"dryrun_multichip({n_devices}): OFDM batch mesh detected "
+          f"{of.detected.sum()}/{len(of.detected)}, cw decode {of.cw_success.mean():.2f}")
+    true_lts = sent["G5"]["positions"][0] + 5 * P.TINY_OFDM.symbol_samples
+    print(f"dryrun_multichip({n_devices}): OFDM stream mesh detected "
+          f"{bool(ost['detected'])} at {int(ost['lts_start'])} (true {true_lts}), "
+          f"cw decode {ost['cw_success'].mean():.2f}")
+    return res

@@ -25,6 +25,9 @@ from ria_tpu_torch.sim import continuous, simulator
 from ria_tpu_torch.sync import css, zc
 from ria_tpu_torch.tools import dual_modem_tcp, waveform_paths
 from ria_tpu_torch.wave import afdm, api, dpsk, mfsk, ofdm, otfs
+from ria_tpu_torch import entry as entry_mod
+from ria_tpu_torch.parallel import distributed, launch, mesh as pmesh, stream as pstream
+from ria_tpu_torch.tools import parallel_paths, scaling_bench
 
 torch.set_num_threads(1)
 
@@ -108,7 +111,41 @@ CALLS = {
     "TuiApp[audio]": lambda: tui.TuiApp().station.handshake_wf.device,
     "HostInterface.RAWTX": lambda: _rawtx(),
     "cli gui": lambda: _cli_gui(),
+    "initialize": lambda: (distributed.initialize(), distributed.rank_device("cuda"))[1],
+    "make_mesh": lambda: pmesh.make_mesh().device,
+    "make_hybrid_mesh": lambda: distributed.make_hybrid_mesh().device,
+    "make_stream_mesh": lambda: pstream.make_stream_mesh().device,
+    "make_sharded_rx": lambda: _sharded_rx(),
+    "make_stream_rx": lambda: _stream_rx(),
+    "launch": lambda: launch.launch(parallel_paths.where, 1)[0],
+    "dryrun_multichip": lambda: _dryrun(),
 }
+
+
+def _sharded_rx():
+    """The batch mesh of one rank, built with no ``device``: its result lies
+    on the card."""
+    cfg, ncw, _, window = geometry()
+    rx = pmesh.make_sharded_rx(pmesh.make_mesh(), cfg, RATE, ncw, window)
+    return rx(np.zeros((1, window), np.float32)).snr_db
+
+
+def _stream_rx():
+    cfg, ncw, _, _ = geometry()
+    block, _ = parallel_paths.tiny_stream_geometry(cfg, ncw, 1)
+    rx = pstream.make_stream_rx(pstream.make_stream_mesh(), cfg, RATE, ncw, block)
+    return rx(np.zeros(block, np.float32))["snr_db"]
+
+
+def _dryrun():
+    """The dry run on 4 ranks with no ``device``: each rank's device is a
+    card (the result holds rank 0's program results)."""
+    import contextlib
+    import io
+
+    with contextlib.redirect_stdout(io.StringIO()):
+        entry_mod.dryrun_multichip(4)
+    return launch.launch(parallel_paths.where, 1)[0]
 
 
 def _dual_modem():
@@ -209,3 +246,25 @@ def test_default_device_is_the_card(name):
     else:
         with pytest.raises(RuntimeError, match="cuda"):
             CALLS[name]()
+
+
+@pytest.mark.parametrize("argv", [[], ["--stream"], ["--ofdm-stream"]])
+def test_scaling_bench_defaults_to_the_card(argv, monkeypatch):
+    """``tools/scaling_bench.py`` with no ``--device`` runs its ranks on the
+    card: without one it raises before starting any; with one, the device
+    it hands ``launch`` is the card (the launches themselves are not run
+    here)."""
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            scaling_bench.run(argv)
+        return
+    seen = []
+
+    def stop(case, x, n, reps, device, backend):
+        seen.append(device)
+        raise StopIteration
+
+    monkeypatch.setattr(scaling_bench, "_time", stop)
+    with pytest.raises(StopIteration):
+        scaling_bench.run(argv)
+    assert seen and seen[0].type == "cuda"

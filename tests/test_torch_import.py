@@ -43,6 +43,10 @@ def test_port_imports_without_jax():
         "import ria_tpu_torch.sim.continuous, ria_tpu_torch.tools.dual_modem_tcp\n"
         "import ria_tpu_torch.tools.host_paths\n"
         "import ria_tpu_torch.dsp.resampler, ria_tpu_torch.dsp.biquad\n"
+        "import ria_tpu_torch.parallel, ria_tpu_torch.parallel.distributed\n"
+        "import ria_tpu_torch.parallel._collectives, ria_tpu_torch.parallel.launch\n"
+        "import ria_tpu_torch.parallel.stream, ria_tpu_torch.parallel.mesh\n"
+        "import ria_tpu_torch.tools.parallel_paths, ria_tpu_torch.tools.scaling_bench\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'cryptography', 'tools')\n"
         "             or m.startswith(('jax.', 'ria_tpu.', 'cryptography.', 'tools.')))\n"
