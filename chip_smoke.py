@@ -102,6 +102,27 @@ these phases, each printing its lines and raising on failure:
    decodes, K2 never.  Per case: K1 launches per rank and their batch
    sizes, ms per call (CUDA events, the slowest rank's median of 7) beside
    the same program in one process, and the phase's seconds;
+4h. root tools (the twins of ``tools/*.py`` in ``ria_tpu_torch.tools``) with
+   the default device, at the tools' own geometry: ``verify_cfo_chain`` (12 Hz
+   into an MC-DPSK frame: PASS, the estimate and carrier 0's two phase slopes
+   within 1e-3 Hz of the CPU port's); ``throughput_test.measure_rows()`` (the
+   12 operating points, each row equal to the CPU port's field for field; the
+   table, then the worst net against the reference binary and against the
+   published table); ``acceptance_sweep`` at 3 seeds (its 14 cases on CPU
+   torch generators' draws, keys 1000 + s: every case at its own threshold,
+   seed 0 of each decoding the same bytes as the CPU port); ``otfs_mode_sweep``
+   at 3 seeds (OTFS_EQ, OTFS_RAW, OFDM DQPSK R1/2 over Good, Moderate, Poor at
+   20 dB, the 3 x 3 table; seed 0 of each arm equal to the CPU port's);
+   ``profile_acquisition`` at B = 32 (its six ms figures, CUDA events); and
+   ``goodput`` (the reference's three rows, AWGN 25 dB, Good 20 dB, Moderate
+   20 dB, at seeds 100 and 101, Moderate at 100 only (a session that does not
+   deliver runs 3,000 ticks), CPU generators' draws: AWGN 25 dB seed 100 in
+   lock step with the CPU port, every tick equal; both AWGN sessions connect
+   and deliver 100%; per session the delivered share, goodput bps, link, air
+   and connect seconds, retransmits, ticks and ms per tick, and per row the
+   median kbps beside the reference's).  Every K1 launch of the phase is held
+   against the plain decoder, and K2 is never launched; per tool its K1
+   launches and batch sizes, and the phase's seconds;
 5. A/B entry point: ``ria_tpu_torch.tools.ldpc_bench`` at its default size
    (R1/4, B = 512, -1 dB), K1, K2 and the plain decoder reporting the same
    success set and bit accuracy, with K2's launch count from that run; then
@@ -132,10 +153,10 @@ these phases, each printing its lines and raising on failure:
    MC-DPSK and OFDM_CHIRP one trace of a ``rx_frame``: device kernels, busy
    share, host-device synchronisations and copies; K1 at the sessions' batch
    sizes (device time, bound and share) and one trace of an S1 tick that
-   decodes a frame; K1 at phase 4f's and phase 4g's batch sizes (device time,
-   bound, share);
+   decodes a frame; K1 at phase 4f's, 4g's and 4h's batch sizes (device
+   time, bound, share);
 8. a JSON line of the sessions, one of phase 4f's runs, one of phase 4g's
-   cases, one of the waveform
+   cases, one of phase 4h's tools, one of the waveform
    classes' ``rx_frame`` times, a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -159,7 +180,6 @@ import torch
 RATES_SIGMA = {"R1_4": 2.4, "R1_2": 1.8, "R2_3": 1.5, "R3_4": 1.4, "R5_6": 1.4}
 FACTORS = np.array([0.9375, 0.875, 0.75, 0.625, 0.5], np.float32)
 LLR_ATOL = 1e-3
-DRIFT_AFTER = 5  # iterations past which a wrong candidate's row may drift (phase 4d)
 MIXED_MAX_FLIPS = 0.01  # share of rows of the B = 512 mixed batch
 BENCH_ARGS = ["--rate", "R1_4", "--batch", "512", "--snr-db", "-1", "--reps", "20"]
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W limit).
@@ -304,23 +324,17 @@ def waveform_api_phase(dev: torch.device) -> dict:
     launches: dict[str, tuple[int, int]] = {}
     k1_held: list[dict] = []
 
-    def hold_k1(tag: str, calls, k1: int, drift_after: int | None = None) -> str:
+    def hold_k1(tag: str, calls, k1: int) -> str:
         """The call's K1 launches against the plain decoder; a summary."""
         if len(calls) != k1:
             raise AssertionError(f"{tag}: {k1} K1 launches, {len(calls)} of them recorded")
-        rows = F.hold_k1_calls(calls, tag, drift_after)
+        rows = F.hold_k1_calls(calls, tag)
         k1_held.extend(rows)
         if not rows:
             return "K1 vs plain: no launch"
-        drifted = [d for r in rows for d in r["drifted"]]
         return "K1 vs plain: " + ", ".join(
             f"B={r['B']} k={r['k']} iterations {iteration_counts(r['iterations'])} max |llr err| "
-            f"{r['max_abs_err']:.3g}" for r in rows) + ", no row's outcome differing" + (
-                "" if not drifted else
-                f"; {len(drifted)} rows of the wrong candidates' retry ladders with equal bits "
-                f"after equal iterations ({min(d[1] for d in drifted)}-"
-                f"{max(d[1] for d in drifted)}, all over {drift_after}) and posteriors up to "
-                f"{max(d[2] for d in drifted):.3g} apart")
+            f"{r['max_abs_err']:.3g}" for r in rows) + ", every row equal bit for bit"
 
     def held(tag: str, card_call, cpu_call, check, key: str | None = None):
         """One rx_frame on the card, counted, checked, and held against the
@@ -372,10 +386,7 @@ def waveform_api_phase(dev: torch.device) -> dict:
                 lambda: run_cli(["prx", path] + given))
             tag = f"prx of ptx {text!r} -w {wfn}" + ("" if given else " (auto-detect)")
             launches[tag] = (k1, k2)
-            # Auto-detect feeds K1 the soft bits of candidates that are not
-            # the frame's waveform: only there may a row drift (see
-            # waveform_frames.hold_k1_calls).
-            k1_vs_plain = hold_k1(tag, calls, k1, drift_after=None if given else DRIFT_AFTER)
+            k1_vs_plain = hold_k1(tag, calls, k1)
             want = {"connect": "type=CONNECT src=W1AW dst=VE3ABC", "ping": "type=PING"}.get(
                 text, text)
             log(f"[4d api] {tag}: rc {rc}, {out.strip().splitlines()[:2]}, "
@@ -462,10 +473,8 @@ def waveform_api_phase(dev: torch.device) -> dict:
     k1_err = max(r["max_abs_err"] for r in k1_held)
     log(f"[4d api] K1 vs plain over phase 4d: {len(k1_held)} launches held at B in {sizes}, "
         f"{sum(r['converged'] for r in k1_held)} converged rows, most iterations of one "
-        f"{max(max(r['iterations']) for r in k1_held)}, max |llr err| {k1_err:.3g} "
-        f"(limit {F.LLR_TOL:g}), no row's outcome differing, "
-        f"{sum(len(r['drifted']) for r in k1_held)} rows with posteriors alone apart (auto-detect's "
-        "wrong candidates)")
+        f"{max(max(r['iterations']) for r in k1_held)}, max |llr err| {k1_err:.3g}, every row "
+        "equal bit for bit")
     if not {1, 4} <= set(sizes):
         raise AssertionError(f"phase 4d held K1 at B in {sizes}; 1 and 4 expected")
     return {"frames": api_frames, "launches": launches, "codewords": codewords,
@@ -649,11 +658,10 @@ def session_phase(card: str) -> dict:
         launches[name] = (k1, k2)
         if len(calls) != k1 or k2:
             raise AssertionError(f"{name}: K1 launches {k1} ({len(calls)} recorded), K2 {k2}")
-        rows = F.hold_k1_calls(calls, name, DRIFT_AFTER)
+        rows = F.hold_k1_calls(calls, name)
         for dec, llrs, factors, _ in calls:
             rep_calls.setdefault((llrs.shape[0], dec.k), (dec, llrs, factors))
         sizes = sorted({r["B"] for r in rows})
-        drifted = [d for r in rows for d in r["drifted"]]
         iters = [i for r in rows for i in r["iterations"]]
         ticks = out["ticks"]
         tick_ms = out["tick_ms"]
@@ -683,11 +691,8 @@ def session_phase(card: str) -> dict:
             + "; calls " + ", ".join(f"{k} {v}" for k, v in timer.calls.items())
             + f"; decode_time_ms_avg ALPHA {dec_ms[0]:.2f}, BRAVO {dec_ms[1]:.2f}")
         log(f"[4e sessions] {name}: K1 launches {k1} at B in {sizes}, iterations up to "
-            f"{r['k1_max_iterations']}, K2 launches {k2}; K1 vs plain: no row's outcome "
-            f"differing, max |llr err| {r['k1_max_abs_err']:.3g} (limit {F.LLR_TOL:g})"
-            + ("" if not drifted else
-               f"; {len(drifted)} rows with equal bits after equal iterations (over "
-               f"{DRIFT_AFTER}) and posteriors up to {max(d[2] for d in drifted):.3g} apart"))
+            f"{r['k1_max_iterations']}, K2 launches {k2}; K1 vs plain: every row equal bit for "
+            f"bit, max |llr err| {r['k1_max_abs_err']:.3g}")
         if k1 < 1:
             raise AssertionError(f"{name} launched no K1")
     log(f"[4e sessions] phase 4e took {time.perf_counter() - t_phase:.1f} s")
@@ -731,18 +736,16 @@ def host_phase(card: str) -> dict:
         launches[name] = (k1, k2)
         if len(calls) != k1 or k2:
             raise AssertionError(f"{name}: K1 launches {k1} ({len(calls)} recorded), K2 {k2}")
-        rows = F.hold_k1_calls(calls, name, DRIFT_AFTER)
+        rows = F.hold_k1_calls(calls, name)
         for dec, llrs, factors, _ in calls:
             rep_calls.setdefault((llrs.shape[0], dec.k), (dec, llrs, factors))
         iters = [i for r in rows for i in r["iterations"]]
         err = max((r["max_abs_err"] for r in rows), default=0.0)
         k1_err = max(k1_err, err)
         sizes = sorted({r["B"] for r in rows})
-        drifted = [d for r in rows for d in r["drifted"]]
         log(f"[4f host] {name}: K1 launches {k1} at B in {sizes}, iterations up to "
-            f"{max(iters) if iters else 0}, K2 launches {k2}; K1 vs plain: no row's outcome "
-            f"differing, max |llr err| {err:.3g} (limit {F.LLR_TOL:g})"
-            + ("" if not drifted else f"; {len(drifted)} rows drifting after equal outcomes"))
+            f"{max(iters) if iters else 0}, K2 launches {k2}; K1 vs plain: every row equal bit "
+            f"for bit, max |llr err| {err:.3g}")
         return {"k1_launches": k1, "k1_batch_sizes": sizes, "k1_max_abs_err": err,
                 "k1_max_iterations": max(iters) if iters else 0}
 
@@ -970,6 +973,186 @@ def scale_out_phase(card: str, dev: torch.device) -> dict:
     log(f"[4g scale-out] phase 4g took {seconds:.1f} s")
     return {"cases": summary, "launches": launches, "calls": rep_calls, "k1_err": k1_err,
             "backend": backend, "seconds": seconds}
+
+
+TOOL_SEEDS = 3  # seeds a case of the acceptance and OTFS sweeps in phase 4h
+# Seeds of each goodput row in phase 4h.  A session that does not deliver
+# runs all its 3,000 ticks (65-70 s on the card): Moderate runs one seed.
+GOODPUT_SEEDS = {"awgn": (100, 101), "good": (100, 101), "moderate": (100,)}
+CFO_TOL_HZ = 1e-3  # the CFO chain's estimate and slopes, card against CPU
+
+
+def tools_phase(card: str) -> dict:
+    """Phase 4h, the twins of the root tools with the default device, at the
+    tools' own geometry.  Every K1 launch of the phase is held against the
+    plain decoder; K2 is never launched.  Returns {"summary": for the JSON
+    line, "launches": {tool: (K1, K2)}, "calls": {(B, k): (decoder, LLRs,
+    factors)} one recorded K1 call per batch size, "k1_err", "seconds"}."""
+    from ria_tpu_torch.protocol.connection import ConnectionState
+    from ria_tpu_torch.tools import acceptance_sweep as A
+    from ria_tpu_torch.tools import goodput as G
+    from ria_tpu_torch.tools import otfs_mode_sweep as O
+    from ria_tpu_torch.tools import profile_acquisition as P
+    from ria_tpu_torch.tools import session_paths as S
+    from ria_tpu_torch.tools import throughput_test as TT
+    from ria_tpu_torch.tools import verify_cfo_chain as V
+    from ria_tpu_torch.tools import waveform_frames as F
+
+    t_phase = time.perf_counter()
+    summary, launches, rep_calls = {}, {}, {}
+    k1_err = 0.0
+
+    def tool_log(msg: str) -> None:
+        log(f"[4h tools]   {msg}")
+
+    def quiet(msg: str) -> None:
+        pass
+
+    def held(name: str, fn):
+        """(fn(), its summary): fn's K1 launches held against plain, 0 K2."""
+        nonlocal k1_err
+        t0 = time.perf_counter()
+        out, k1, k2, calls = F.counted_k1(fn)
+        seconds = time.perf_counter() - t0
+        launches[name] = (k1, k2)
+        if len(calls) != k1 or k2:
+            raise AssertionError(f"{name}: K1 launches {k1} ({len(calls)} recorded), K2 {k2}")
+        t0 = time.perf_counter()
+        rows = F.hold_k1_calls(calls, name)
+        hold_s = time.perf_counter() - t0
+        for dec, llrs, factors, _ in calls:
+            rep_calls.setdefault((llrs.shape[0], dec.k), (dec, llrs, factors))
+        iters = [i for r in rows for i in r["iterations"]]
+        err = max((r["max_abs_err"] for r in rows), default=0.0)
+        k1_err = max(k1_err, err)
+        sizes = sorted({r["B"] for r in rows})
+        log(f"[4h tools] {name}: {seconds:.1f} s (its K1 launches held in {hold_s:.1f} s); "
+            f"K1 launches {k1} at B in {sizes}, iterations up to {max(iters) if iters else 0}, "
+            f"K2 launches {k2}; K1 vs plain: every row equal bit for bit, max |llr err| "
+            f"{err:.3g}")
+        return out, {"seconds": seconds, "k1_launches": k1, "k1_batch_sizes": sizes,
+                     "k1_max_iterations": max(iters) if iters else 0, "k1_max_abs_err": err}
+
+    # The CFO chain: 12 Hz injected, the dual-chirp estimate and carrier 0's
+    # phase slopes before and after the correction, card against CPU.
+    cfo, info = held("verify_cfo_chain", lambda: V.measure(12.0))
+    cpu = V.measure(12.0, "cpu")
+    errs = {k: abs(cfo[k] - cpu[k]) for k in ("estimate", "slope_pre", "slope_post")}
+    log(f"[4h tools] verify_cfo_chain: applied {cfo['applied']:+.2f} Hz, estimate "
+        f"{cfo['estimate']:+.4f} Hz, slopes {cfo['slope_pre']:+.4f} -> {cfo['slope_post']:+.4f} "
+        f"Hz, correction {cfo['correction']:+.4f} Hz: {'PASS' if cfo['ok'] else 'FAIL'}; "
+        "against the CPU port " + ", ".join(f"|{k} err| {v:.3g} Hz" for k, v in errs.items()))
+    if not cfo["ok"] or max(errs.values()) > CFO_TOL_HZ:
+        raise AssertionError(f"verify_cfo_chain: {cfo} against the CPU port's {cpu}")
+    summary["verify_cfo_chain"] = dict(info, **{k: cfo[k] for k in ("estimate", "slope_pre",
+                                                                    "slope_post", "correction")},
+                                       vs_cpu_hz=errs)
+
+    # The throughput table: the TX chain and the protocol's tables only.
+    rows, info = held("throughput_test", TT.measure_rows)
+    cpu_rows = TT.measure_rows("cpu")
+    for got, want in zip(rows, cpu_rows):
+        if got != want:
+            raise AssertionError(f"throughput row {got['name']}: card {got}, CPU port {want}")
+    if len(rows) != 12 or len(cpu_rows) != 12:
+        raise AssertionError(f"throughput_test: {len(rows)} rows on the card, "
+                             f"{len(cpu_rows)} on the CPU")
+    log("[4h tools] throughput_test.measure_rows(): 12 rows equal to the CPU port's, field "
+        "for field")
+    worst, worst_bin = TT.report(rows, log=tool_log)
+    summary["throughput_test"] = dict(info, worst_vs_published=worst,
+                                      worst_vs_reference_binary=worst_bin,
+                                      steady_bps={r["name"]: r["steady"] for r in rows})
+
+    # The acceptance sweep: its fourteen cases on CPU generators' draws
+    # (keys 1000 + s), so the card's run can be held to the CPU port's.
+    card_draws = A.generator_draws("cuda", "cpu")
+    results, info = held("acceptance_sweep", lambda: A.sweep(TOOL_SEEDS, draws=card_draws,
+                                                             log=tool_log))
+    for case, r in zip(A.CASES, results):
+        c = A.run_case(case, 1, "cpu", A.generator_draws("cpu", "cpu"), log=quiet)
+        if (c["outcomes"][0], c["frames"][0]) != (r["outcomes"][0], r["frames"][0]):
+            raise AssertionError(f"{case.name} seed 0: card {r['outcomes'][0]} "
+                                 f"{r['frames'][0]!r}, CPU port {c['outcomes'][0]} "
+                                 f"{c['frames'][0]!r}")
+    log(f"[4h tools] acceptance_sweep: seed 0 of each of the {len(results)} cases equal to "
+        "the CPU port's (outcome and frame bytes)")
+    failed = [r["name"] for r in results if not r["passed"]]
+    if failed:
+        raise AssertionError(f"acceptance_sweep: below their thresholds: {failed}")
+    summary["acceptance_sweep"] = dict(info, seeds=TOOL_SEEDS, cases={
+        r["name"]: f"{r['passes']}/{r['seeds']} (need {r['need']})" for r in results})
+
+    # The OTFS mode sweep: 3 x 3 arms, the same draws (keys s).
+    table, info = held("otfs_mode_sweep", lambda: O.sweep(TOOL_SEEDS, 20.0, draws=card_draws,
+                                                          log=tool_log))
+    cpu_table = O.sweep(1, 20.0, "cpu", A.generator_draws("cpu", "cpu"), log=quiet)
+    for ch in O.CHANNELS:
+        for m in O.MODES:
+            if table[ch][m][0] != cpu_table[ch][m][0]:
+                raise AssertionError(f"otfs_mode_sweep {ch} {m} seed 0: card "
+                                     f"{table[ch][m][0]}, CPU port {cpu_table[ch][m][0]}")
+    log("[4h tools] otfs_mode_sweep: seed 0 of each arm equal to the CPU port's")
+    summary["otfs_mode_sweep"] = dict(info, seeds=TOOL_SEEDS, table={
+        ch: {m: sum(w) for m, w in arms.items()} for ch, arms in table.items()})
+
+    # Acquisition and decode latency at B = 32 (CUDA events).
+    ms, info = held("profile_acquisition", lambda: P.profile(32, log=tool_log))
+    summary["profile_acquisition"] = dict(info, batch=32, ms=ms)
+
+    # Goodput: each row at two seeds, CPU generators' draws (s, s + 1); the
+    # first AWGN session in lock step with the CPU port.
+    sessions, kbps = {}, {}
+    for channel, snr, ref_kbps, ref_rate in G.ROWS:
+        full, seeds = [], GOODPUT_SEEDS[channel]
+        for seed in seeds:
+            s = G.session(channel, snr, seed)
+            if (channel, seed) == ("awgn", seeds[0]):
+                card_sim = G.make_sim(channel, snr, seed,
+                                      draws=S.generator_draws(s, "cuda", "cpu"))
+                cpu_sim = G.make_sim(channel, snr, seed, "cpu",
+                                     S.generator_draws(s, "cpu", "cpu"))
+                if card_sim.device.type != "cuda":
+                    raise AssertionError("goodput.make_sim's default device is not the card")
+                lock, info = held(s.name, lambda: S.lock_step(
+                    [card_sim, cpu_sim], s, [ConnectionState, ConnectionState],
+                    synchronize=torch.cuda.synchronize))
+                out = dict(lock["outs"][0], ticks=lock["ticks"], tick_ms=lock["tick_ms"][0])
+                log(f"[4h tools] {s.name} card vs CPU port: {lock['ticks']} ticks equal "
+                    f"(states, links, counters, ring, pending sync, messages), max |snr err| "
+                    f"{lock['max_snr_err']:.3g} dB (limit {S.SNR_TOL_DB:g})")
+            else:
+                out, info = held(s.name, lambda: S.run(
+                    s, draws=S.generator_draws(s, "cuda", "cpu"),
+                    synchronize=torch.cuda.synchronize))
+            r = dict(info, **{k: out.get(k) for k in ("connected", "delivered", "goodput_bps",
+                                                      "link", "air_s", "connect_s",
+                                                      "retransmits")},
+                     ticks=out["ticks"], tick_ms_median=float(np.median(out["tick_ms"])),
+                     tick_ms_p90=float(np.percentile(out["tick_ms"], 90)))
+            sessions[s.name] = r
+            if r["delivered"] and r["delivered"] >= 1.0:
+                full.append(r["goodput_bps"])
+            log(f"[4h tools] {s.name}: delivered {r['delivered']:.0%}, "
+                f"{r['goodput_bps']:.1f} bps, link {r['link']}, air {r['air_s']} s, connect "
+                f"{r['connect_s']} s, retransmits {r['retransmits']}, {r['ticks']} ticks, ms per "
+                f"tick median {r['tick_ms_median']:.2f}, p90 {r['tick_ms_p90']:.2f} ({card})")
+            if channel == "awgn" and not (r["connected"] and r["delivered"] == 1.0):
+                raise AssertionError(f"{s.name} did not deliver everything: {r}")
+        med = sorted(full)[len(full) // 2] if full else 0.0
+        kbps[f"{channel}({snr:g})"] = {"delivered": f"{len(full)}/{len(seeds)}",
+                                       "median_kbps": med / 1e3, "reference_kbps": ref_kbps,
+                                       "reference_delivery": ref_rate}
+        log(f"[4h tools] goodput {channel} @ {snr:g} dB: {len(full)}/{len(seeds)} "
+            f"delivered, median {med / 1e3:.3f} kbps (reference {ref_kbps} kbps at "
+            f"{ref_rate:.0%} of runs)")
+    summary["goodput"] = {"rows": kbps, "sessions": sessions}
+    if sum(k1 for k1, _ in launches.values()) < 1:
+        raise AssertionError("phase 4h launched no K1")
+    seconds = time.perf_counter() - t_phase
+    log(f"[4h tools] phase 4h took {seconds:.1f} s")
+    return {"summary": summary, "launches": launches, "calls": rep_calls, "k1_err": k1_err,
+            "seconds": seconds}
 
 
 def k1_at_sizes(rep_calls: dict, where: str, card: str) -> dict:
@@ -1278,6 +1461,10 @@ def main() -> int:
     scale = scale_out_phase(card, dev)
     max_err["K1"] = max(max_err["K1"], scale["k1_err"])
 
+    # -- 4h. root tools -------------------------------------------------------
+    tools = tools_phase(card)
+    max_err["K1"] = max(max_err["K1"], tools["k1_err"])
+
     # -- 5. A/B entry point ---------------------------------------------------
     log(f"[5 A/B] python -m ria_tpu_torch.tools.ldpc_bench {' '.join(BENCH_ARGS)}")
     ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
@@ -1520,6 +1707,7 @@ def main() -> int:
     k1_sessions = time_sessions(sessions, card)
     k1_host = k1_at_sizes(host["calls"], "phase-4f", card)
     k1_scale = k1_at_sizes(scale["calls"], "phase-4g", card)
+    k1_tools = k1_at_sizes(tools["calls"], "phase-4h", card)
 
     # The serial floor: one codeword alone for all 50 iterations.
     ab_k1 = dec(ab_llr, ab_fac)
@@ -1553,6 +1741,7 @@ def main() -> int:
         by_path.update({f"host {name}": n[i] for name, n in host["launches"].items()})
         by_path.update({f"scale-out {name} (sum over ranks)": sum(n[i])
                         for name, n in scale["launches"].items()})
+        by_path.update({f"tools {name}": n[i] for name, n in tools["launches"].items()})
         kernels.append({
             "name": "ldpc_bp" if name == "K1" else "ldpc_bp_v1", "route": "cuda",
             "source": source, "replaces": replaces, "launches": n_launch,
@@ -1572,6 +1761,8 @@ def main() -> int:
         b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_host.items()}
     kernels[0]["scaleout_us_by_batch"] = {
         b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_scale.items()}
+    kernels[0]["tools_us_by_batch"] = {
+        b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_tools.items()}
     for i, kernel in enumerate(kernels):
         kernel["scaleout_launches_per_rank"] = {name: n[i]
                                                 for name, n in scale["launches"].items()}
@@ -1580,6 +1771,7 @@ def main() -> int:
                     "card": card}))
     log(json.dumps({"scale_out": scale["cases"], "ranks": 4, "backend": scale["backend"],
                     "phase_s": scale["seconds"], "card": card}))
+    log(json.dumps({"tools": tools["summary"], "phase_s": tools["seconds"], "card": card}))
     # The whole call on the host's clock: the API's number, not a kernel's.
     log(json.dumps({"rx_frame_ms_by_class": {name: t[0] for name, t in api_ms.items()},
                     "spectral_snr_ms_in_call_by_class": {name: t[3] for name, t in api_ms.items()},

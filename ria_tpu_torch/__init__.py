@@ -6,3 +6,5 @@ sm_90a on first use (``csrc/ldpc_bp.cu``).  Imports no JAX.
 """
 
 __version__ = "0.1.0"
+
+SAMPLE_RATE = 48000.0

@@ -11,17 +11,18 @@ __all__ = [
     "RECOMMENDED_ITERS",
     "get_code",
     "encode_np",
-    "DecodeResult",
     "LDPCCodec",
+    "make_decoder",
+    "make_encoder",
+    "DecodeResult",
+    # the port's own
     "LDPCDecoder",
     "candidate_plan",
     "decode_batch",
     "decode_candidates",
     "decode_chunked",
     "decode_with_retries",
-    "make_decoder",
     "make_decoder_vf",
-    "make_encoder",
     "make_tile_decoder",
     "make_cuda_decoder",
     "make_cuda_decoder_v1",

@@ -7,9 +7,11 @@ candidate probes and ``LDPCCodec``).  Three decoders compute the same thing:
 
 - the plain PyTorch decoder (:meth:`LDPCDecoder.plain`, returned by
   :func:`make_decoder_vf`) mirrors the JAX reference: messages in a dense
-  ``[B, m, D]`` tensor, gather and scatter as f32 matmuls with the one-hot
-  edge matrix ``code.gather``, and one global loop over iterations with a
-  per-codeword freeze;
+  ``[B, m, D]`` tensor, the gather an f32 matmul with the one-hot edge
+  matrix ``code.gather``, and one global loop over iterations with a
+  per-codeword freeze; each variable sums its messages in ascending edge
+  order, as K1 does, so the two agree bit for bit (the reference scatters
+  through a matmul, whose order of summation is the library's);
 - kernel K1 (``csrc/ldpc_bp.cu``, bound in :mod:`ria_tpu_torch.fec.ldpc_kernel`)
   runs the whole loop per codeword in shared memory;
 - :meth:`LDPCDecoder.plain_v1` is the plain PyTorch version of kernel K2
@@ -75,6 +77,8 @@ class LDPCDecoder(nn.Module):
         self.register_buffer("gather", torch.as_tensor(code.gather, device=dev))
         self.register_buffer("row_idx", torch.as_tensor(code.row_idx, device=dev))
         self.register_buffer("row_mask", torch.as_tensor(code.row_mask, device=dev))
+        self.register_buffer("var_edges", torch.as_tensor(
+            _var_edges(code.row_idx, code.row_mask, code.n), device=dev))
         layout = ldpc_kernel.k1_layout(code.row_idx, code.row_mask, code.n)
         self.register_buffer("k1_row", torch.as_tensor(layout.row, device=dev))
         self.register_buffer("k1_epos", torch.as_tensor(layout.epos, device=dev))
@@ -111,8 +115,23 @@ class LDPCDecoder(nn.Module):
         c2v = sign_prod * sgn * excl_min * factors[:, None, None]
         return torch.where(mask, c2v, 0.0)
 
+    def _variable_sum(self, c2v: torch.Tensor) -> torch.Tensor:
+        """[B, n]: each variable's check messages summed in ascending edge
+        order from 0.0, K1's order.  A float32 sum's rounding depends on its
+        order, and near the decoding threshold BP doubles a difference about
+        every three iterations, so another order can change a row's outcome
+        after 50 or more."""
+        B = c2v.shape[0]
+        flat = torch.cat([c2v.reshape(B, -1), c2v.new_zeros(B, 1)], dim=1)
+        msgs = flat[:, self.var_edges]  # [B, n, max degree], zeros past a degree
+        s = torch.zeros_like(msgs[:, :, 0])
+        for j in range(msgs.shape[-1]):
+            s = s + msgs[:, :, j]
+        return s
+
     def plain(self, llrs: torch.Tensor, factors: torch.Tensor) -> DecodeResult:
-        """The plain PyTorch decoder (``make_decoder_vf`` of the reference)."""
+        """The plain PyTorch decoder (``make_decoder_vf`` of the reference),
+        bit-identical to K1."""
         B = llrs.shape[0]
         m, D, g = self.m, self.D, self.gather
         llr_in = llrs.float()
@@ -124,7 +143,7 @@ class LDPCDecoder(nn.Module):
         it = 0
         while it < self.max_iters and not bool(done.all()):
             c2v = self._check_update(v2c, factors)
-            llr_new = llr_in + c2v.reshape(B, m * D) @ g
+            llr_new = llr_in + self._variable_sum(c2v)
             # One gather serves both the next v2c and the parity check.
             edge = (llr_new @ g.T).reshape(B, m, D)
             v2c_new = torch.clamp(edge - c2v, -LLR_CLAMP, LLR_CLAMP)
@@ -203,6 +222,18 @@ class LDPCDecoder(nn.Module):
             it += 1
         info_bits = (llr_total[:, : self.k] < 0).to(torch.uint8)
         return DecodeResult(info_bits, done, iters, llr_total)
+
+
+def _var_edges(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> np.ndarray:
+    """[n, max degree] int64: each variable's edges ``e = check * D + d`` in
+    ascending order, padded with ``m * D`` (a message slot held at 0)."""
+    m, D = np.asarray(row_idx).shape
+    col_ptr, col_edge = ldpc_kernel.csc_tables(row_idx, row_mask, n)
+    deg = np.diff(col_ptr)
+    out = np.full((n, max(int(deg.max(initial=0)), 1)), m * D, np.int64)
+    for v in range(n):
+        out[v, : deg[v]] = col_edge[col_ptr[v] : col_ptr[v + 1]]
+    return out
 
 
 @functools.lru_cache(maxsize=None)

@@ -27,7 +27,10 @@ import time
 from ria_tpu_torch.utils.device import resolve_device
 
 
-def run_session(args, seed: int) -> dict:
+def run_session(args, seed: int, draws=None) -> dict:
+    """One session of ``args`` at ``seed``; ``draws`` (a pair of sources,
+    A->B and B->A, as ``DualStationSim`` takes them) replaces the channels'
+    default generators."""
     from ria_tpu_torch.phy.frame_v2 import WaveformMode
     from ria_tpu_torch.protocol.connection import ConnectionConfig, ConnectionState
     from ria_tpu_torch.sim.channel import PRESETS
@@ -61,7 +64,7 @@ def run_session(args, seed: int) -> dict:
                          use_css=getattr(args, "css", False),
                          feed_chunk_ms=getattr(args, "feed_chunk_ms", None),
                          decode_delay_blocks=getattr(args, "decode_delay_blocks", 1),
-                         device=getattr(args, "device", "cuda"))
+                         device=getattr(args, "device", "cuda"), draws=draws)
     result = {"seed": seed, "connected": False, "messages": 0, "file_ok": False,
               "disconnected": False, "retransmissions": 0}
     got_b, got_a = [], []

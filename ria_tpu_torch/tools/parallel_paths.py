@@ -646,7 +646,7 @@ def run_rank(cases, reps: int, data: dict) -> dict:
 
     Per case: {"result": the first call's result, "k1_launches",
     "k2_launches" (counted around that call alone), "k1_calls": one
-    {"B", "k", "iterations", "converged", "max_abs_err", "drifted"} per K1
+    {"B", "k", "iterations", "converged", "max_abs_err"} per K1
     launch held against the plain decoder, "k1_inputs": {(B, k): (rate,
     max_iters, LLRs, factors)} of one launch per batch size (rank 0), "ms":
     the median of ``reps`` timed calls (None for ``reps`` 0 and for G7,

@@ -12,7 +12,10 @@ the negotiated waveform) driven by a traffic script:
 - S2 ``awgn(6)``, seed 3: eight messages A -> B, where the stations move
   to the 16-carrier DQPSK R1/2 MC-DPSK profile (``test_mc_profile.py``);
 - S3 ``poor(15)``, seed 42 and S4 ``good(-8)``, seed 42: ``run_session``
-  of the simulator CLI, two messages (``test_session_floors.py``).
+  of the simulator CLI, two messages (``test_session_floors.py``);
+
+and the goodput sessions of ``tools/goodput.py`` (traffic ``goodput``, made
+by ``goodput.session``): a 4,096-byte bulk transfer.
 
 A traffic script is a generator that advances its simulator one block per
 ``yield``, so two simulators — the port on two devices, or the port and the
@@ -37,7 +40,7 @@ class Session:
     channel: str          # a preset of sim.channel.PRESETS
     snr_db: float
     seed: int
-    traffic: str          # "protocol", "mc_profile" or "run_session"
+    traffic: str          # "protocol", "mc_profile", "run_session" or "goodput"
     messages: int
     asserts_delivery: bool = True
 
@@ -72,6 +75,11 @@ def script(sim, session: Session, out: dict, ConnectionState):
     got_a, got_b = out.setdefault("got_a", []), out.setdefault("got_b", [])
     sim.bravo.conn.on_message = got_b.append
     sim.alpha.conn.on_message = got_a.append
+    if session.traffic == "goodput":
+        from ria_tpu_torch.tools.goodput import transfer
+
+        out.update((yield from transfer(sim, session.seed, got=got_b)))
+        return
     out.update(connected=False, messages=0, disconnected=False)
     if not sim.alpha.conn.connect("BRAVO"):
         raise AssertionError(f"{session.name}: connect() refused")
@@ -154,9 +162,11 @@ def first_difference(a: dict, b: dict) -> str | None:
     return "; ".join(diffs) or None
 
 
-def lock_step(sims: list, session: Session, states: list, synchronize=None) -> dict:
-    """Run ``session``'s script on each simulator of ``sims`` (each with its
-    package's ``ConnectionState`` in ``states``) one block at a time, and
+def lock_step(sims: list, session: Session, states: list, synchronize=None,
+              traffic=None) -> dict:
+    """Run ``session``'s script (or ``traffic(sim, out, ConnectionState)``,
+    a generator of the same kind) on each simulator of ``sims`` (each with
+    its package's ``ConnectionState`` in ``states``) one block at a time, and
     compare their snapshots after every block.  Raises at the first tick
     that differs, with both sides.  Returns {"outs": the scripts' ``out``
     dicts, "ticks", "max_snr_err", "snapshots": the first run's, "sims",
@@ -164,7 +174,8 @@ def lock_step(sims: list, session: Session, states: list, synchronize=None) -> d
     ``synchronize()`` (e.g. the card's) called before each reading}."""
     sync = synchronize or (lambda: None)
     outs = [{} for _ in sims]
-    gens = [script(sim, session, out, cs) for sim, out, cs in zip(sims, outs, states)]
+    traffic = traffic or (lambda sim, out, cs: script(sim, session, out, cs))
+    gens = [traffic(sim, out, cs) for sim, out, cs in zip(sims, outs, states)]
     snaps, max_snr_err = [], 0.0
     tick_ms = [[] for _ in sims]
     while True:

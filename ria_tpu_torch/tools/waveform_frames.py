@@ -14,7 +14,8 @@ the same call with ``device="cpu"``.
 - :data:`NOISY_FRAMES`: two frames near their decode floor, where K1 runs
   several iterations at B = 1 and B = 4.
 - :func:`counted_k1` and :func:`hold_k1_calls`: every K1 call one
-  ``rx_frame`` makes, held against the plain decoder on the same inputs.
+  ``rx_frame`` makes, held against the plain decoder on the same inputs,
+  bit for bit.
 - :func:`same_rx`: ok, frame bytes, header, per-CW flags and start equal;
   CFO, SNR, fading index and the channel probe within 1e-3; soft bits
   within 2e-3.
@@ -89,7 +90,6 @@ NOISY_FRAMES = (
     CleanFrame("MCDPSKWaveform", "MC_DPSK", "DBPSK", "R1_4", False, PAYLOAD, -10.0),
     CleanFrame("OFDMChirpWaveform", "OFDM_CHIRP", "DQPSK", "R1_2", False, PAYLOAD, 2.0),
 )
-LLR_TOL = 1e-3    # K1's posteriors against the plain decoder's
 VARIABLE_CW = ("MC_DPSK", "DPSK", "MFSK", "OTFS_EQ", "OTFS_RAW")
 
 
@@ -174,49 +174,50 @@ def counted_k1(fn):
     return out, k1, k2, calls
 
 
-def hold_k1_calls(calls, tag: str = "", drift_after: int | None = None) -> list[dict]:
-    """Hold each recorded K1 result against the plain decoder on the same
-    LLRs and factors: success flags equal, and on the rows both converged,
-    info bits and iteration counts equal and posteriors within ``LLR_TOL``.
-    Returns one {"B", "k", "iterations", "converged", "max_abs_err",
-    "drifted"} per call; raises on a row that differs.
+HOLD_ROWS = 8192  # rows of one plain decode in :func:`hold_k1_calls`
 
-    K1 and the plain decoder sum a variable's messages in different orders.
-    The rounding difference (~1e-5 after one iteration) grows about twofold
-    an iteration while the posteriors grow to +-250, so a row that needs ten
-    iterations or more ends with the same bits after the same number of
-    iterations and posteriors up to a few percent apart.  ``prx`` meets such
-    rows when it tries candidates that are not the frame's waveform and
-    their retry ladders add noise to half-decodable codewords.  With
-    ``drift_after`` given, a row whose outcome is equal and whose posteriors
-    alone differ, after more than that many iterations, is listed under
-    ``drifted`` as (row, iterations, |llr| error) and not refused."""
+
+def hold_k1_calls(calls, tag: str = "") -> list[dict]:
+    """Hold each recorded K1 result against the plain decoder on the same
+    LLRs and factors.  The two sum every variable's messages in the same
+    order, so every output of every row must be equal: success, iterations,
+    info bits and posteriors, bit for bit.  A decoder's rows are
+    independent, so the calls of one decoder are decoded by the plain
+    decoder together, HOLD_ROWS rows at a time.  Returns one {"B", "k",
+    "iterations", "converged", "max_abs_err"} per call; raises on a row that
+    differs."""
+    by_decoder: dict[int, list[int]] = {}
+    for i, (dec, *_rest) in enumerate(calls):
+        by_decoder.setdefault(id(dec), []).append(i)
+    wants: list = [None] * len(calls)
+    for idx in by_decoder.values():
+        dec = calls[idx[0]][0]
+        llrs = torch.cat([calls[i][1] for i in idx])
+        factors = torch.cat([calls[i][2] for i in idx])
+        parts = [dec.plain(llrs[j : j + HOLD_ROWS], factors[j : j + HOLD_ROWS])
+                 for j in range(0, llrs.shape[0], HOLD_ROWS)]
+        want = [torch.cat(field) for field in zip(*parts)]
+        start = 0
+        for i in idx:
+            B = calls[i][1].shape[0]
+            wants[i] = [t[start : start + B] for t in want]
+            start += B
     rows = []
-    for dec, llrs, factors, got in calls:
-        want = dec.plain(llrs, factors)
-        both = want.success & got.success
-        err = (want.llr_total - got.llr_total).abs().amax(dim=1)
-        bad = want.success != got.success
-        bad |= both & (want.iterations != got.iterations)
-        bad |= both & (want.info_bits != got.info_bits).any(dim=1)
-        off = both & ~bad & (err > LLR_TOL)
-        late = off & (want.iterations > drift_after) if drift_after is not None else off & False
-        bad |= off & ~late
+    for (dec, llrs, factors, got), want in zip(calls, wants):
+        info_bits, success, iterations, llr_total = want
+        err = (llr_total - got.llr_total).abs().amax(dim=1)
+        bad = ((success != got.success) | (iterations != got.iterations)
+               | (info_bits != got.info_bits).any(dim=1) | (llr_total != got.llr_total).any(dim=1))
         B = llrs.shape[0]
         if bool(bad.any()):
             detail = "; ".join(
-                f"row {i}: plain success {bool(want.success[i])} after "
-                f"{int(want.iterations[i])}, K1 {bool(got.success[i])} after "
-                f"{int(got.iterations[i])}, |llr err| {float(err[i]):.3g}"
-                for i in bad.nonzero().flatten().tolist())
+                f"row {i}: plain success {bool(success[i])} after {int(iterations[i])}, K1 "
+                f"{bool(got.success[i])} after {int(got.iterations[i])}, |llr err| "
+                f"{float(err[i]):.3g}" for i in bad.nonzero().flatten().tolist())
             raise AssertionError(f"{tag}: K1 at B={B}, k={dec.k} differs from the plain decoder "
                                  f"on {detail}")
-        held = both & ~late
         rows.append({"B": B, "k": dec.k, "iterations": got.iterations.tolist(),
-                     "converged": int(both.sum()),
-                     "drifted": [(i, int(want.iterations[i]), float(err[i]))
-                                 for i in late.nonzero().flatten().tolist()],
-                     "max_abs_err": float(err[held].max()) if bool(held.any()) else 0.0})
+                     "converged": int(got.success.sum()), "max_abs_err": float(err.max())})
     return rows
 
 

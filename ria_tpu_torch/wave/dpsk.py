@@ -32,6 +32,7 @@ from ria_tpu_torch.wave.ofdm import _rdiv
 
 BARKER13 = np.array([1, 1, 1, 1, 1, -1, -1, 1, 1, -1, 1, -1, 1])
 BARKER_REPEATS = 3
+TRAINING_SYMBOLS = 8
 # Coarse offsets step by sps / COARSE_PHASES; the fine pass steps by
 # FINE_STEP samples over one symbol either side of the coarse peak.
 COARSE_PHASES = 8

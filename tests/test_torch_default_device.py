@@ -5,6 +5,8 @@ must raise instead of running on the host; with one, its result must lie on
 the card.  Whether a card is present is decided inside the test.
 """
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -267,4 +269,40 @@ def test_scaling_bench_defaults_to_the_card(argv, monkeypatch):
     monkeypatch.setattr(scaling_bench, "_time", stop)
     with pytest.raises(StopIteration):
         scaling_bench.run(argv)
+    assert seen and seen[0].type == "cuda"
+
+
+# The root tools' twins, each with short arguments; without --device each
+# must reach the card.
+TOOLS = {
+    "verify_cfo_chain": [],
+    "profile_acquisition": ["--batch", "1", "--iters", "1"],
+    "acceptance_sweep": ["--seeds", "1"],
+    "otfs_mode_sweep": ["--seeds", "1"],
+    "throughput_test": [],
+    "goodput": ["--seeds", "1"],
+    "adaptive_session_sweep": ["--snrs", "12"],
+}
+
+
+@pytest.mark.parametrize("tool", list(TOOLS))
+def test_tool_defaults_to_the_card(tool, monkeypatch):
+    """``python -m ria_tpu_torch.tools.<tool>`` with no ``--device``: without
+    a card it raises before any work; with one, the device it resolves (and
+    hands to everything it builds) is the card (the tool is stopped there)."""
+    mod = importlib.import_module(f"ria_tpu_torch.tools.{tool}")
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.main(TOOLS[tool])
+        return
+    seen = []
+    resolve = mod.resolve_device
+
+    def stop(device):
+        seen.append(resolve(device))
+        raise StopIteration
+
+    monkeypatch.setattr(mod, "resolve_device", stop)
+    with pytest.raises(StopIteration):
+        mod.main(TOOLS[tool])
     assert seen and seen[0].type == "cuda"

@@ -1,9 +1,12 @@
-"""The PyTorch port imports without JAX."""
+"""The PyTorch port imports without JAX, and keeps the reference's names."""
 
+import ast
+import importlib
 import subprocess
 import sys
 from pathlib import Path
 
+import pytest
 import torch
 
 torch.set_num_threads(1)
@@ -47,6 +50,10 @@ def test_port_imports_without_jax():
         "import ria_tpu_torch.parallel._collectives, ria_tpu_torch.parallel.launch\n"
         "import ria_tpu_torch.parallel.stream, ria_tpu_torch.parallel.mesh\n"
         "import ria_tpu_torch.tools.parallel_paths, ria_tpu_torch.tools.scaling_bench\n"
+        "import ria_tpu_torch.tools.verify_cfo_chain, ria_tpu_torch.tools.profile_acquisition\n"
+        "import ria_tpu_torch.tools.acceptance_sweep, ria_tpu_torch.tools.otfs_mode_sweep\n"
+        "import ria_tpu_torch.tools.throughput_test, ria_tpu_torch.tools.goodput\n"
+        "import ria_tpu_torch.tools.adaptive_session_sweep\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'cryptography', 'tools')\n"
         "             or m.startswith(('jax.', 'ria_tpu.', 'cryptography.', 'tools.')))\n"
@@ -135,3 +142,156 @@ def test_dual_modem_tool_runs_without_jax_or_cryptography():
                           text=True, timeout=300)
     assert "data A->B: OK" in proc.stdout, proc.stdout + proc.stderr
     assert proc.returncode == 0, proc.stderr
+
+
+# ------------------------------------------------ the reference's names
+# Every package and module of ``ria_tpu`` (and every root tool) is read with
+# ``ast``, so no JAX is imported, and held against its twin in the port.
+PACKAGES = ["", "sim", "dsp", "sync", "wave", "phy", "fec", "utils", "protocol", "parallel",
+            "runtime"]
+# Reference names the port does not carry, each with its reason.
+NAME_GAPS = {
+    "utils.jnp_bits_to_bytes_array": "a helper on JAX arrays, called nowhere in the repo; the "
+                                     "port packs bits on the host (utils.bits_to_bytes)",
+    "utils.jnp_bytes_to_bits": "a helper on JAX arrays, called nowhere in the repo; the port "
+                               "unpacks bits on the host (utils.bytes_to_bits)",
+    "utils.bits.jnp_bits_to_bytes_array": "as utils.jnp_bits_to_bytes_array",
+    "utils.bits.jnp_bytes_to_bits": "as utils.jnp_bytes_to_bits",
+    "tools.scaling_bench.stream_main": "the port's run(argv) takes --stream in its place",
+    "tools.scaling_bench.ofdm_stream_main": "the port's run(argv) takes --ofdm-stream in its "
+                                            "place",
+}
+# Reference modules without a twin of the same name, each with its reason.
+MODULE_GAPS = {
+    "fec.ldpc_pallas": "its two Pallas kernels are csrc/ldpc_bp.cu and csrc/ldpc_bp_v1.cu, "
+                       "behind fec/ldpc_cuda.py",
+    "utils.platform": "selects a JAX backend; utils.device.resolve_device and --device take "
+                      "its place",
+    "tools.pallas_bench": "twinned by tools/ldpc_bench.py (K1, K2 and the plain decoder)",
+    "tools.bench_profile": "bench.py's per-stage profile, left for the benchmark port",
+}
+
+
+def _reference_file(name: str) -> Path:
+    if name.startswith("tools."):
+        return ROOT / "tools" / (name.split(".", 1)[1] + ".py")
+    path = ROOT / "ria_tpu" / Path(*name.split(".")) if name else ROOT / "ria_tpu"
+    return path / "__init__.py" if path.is_dir() else path.with_suffix(".py")
+
+
+def _port_module(name: str):
+    return importlib.import_module("ria_tpu_torch" + ("." + name if name else ""))
+
+
+def _top_level(name: str) -> tuple[list | None, dict]:
+    """(the reference module's ``__all__`` or None, {each public name it
+    defines or assigns at top level: the literal assigned, else None})."""
+    tree = ast.parse(_reference_file(name).read_text())
+    exported, names = None, {}
+    for node in tree.body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)) and not node.name.startswith("_"):
+            names[node.name] = None
+        elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+            targets = node.targets if isinstance(node, ast.Assign) else [node.target]
+            for t in targets:
+                if isinstance(t, ast.Name) and t.id == "__all__":
+                    exported = ast.literal_eval(node.value)
+                elif isinstance(t, ast.Name) and (not t.id.startswith("_")
+                                                  or t.id == "__version__"):
+                    try:
+                        names[t.id] = ast.literal_eval(node.value)
+                    except ValueError:
+                        names[t.id] = None
+    return exported, names
+
+
+def _reference_modules() -> list[str]:
+    mods = [".".join(p.relative_to(ROOT / "ria_tpu").with_suffix("").parts)
+            for p in sorted((ROOT / "ria_tpu").rglob("*.py")) if p.name != "__init__.py"]
+    return mods + ["tools." + p.stem for p in sorted((ROOT / "tools").glob("*.py"))]
+
+
+@pytest.mark.parametrize("package", PACKAGES, ids=lambda p: p or "ria_tpu")
+def test_package_exports_the_reference_names(package):
+    """The port's package re-exports the reference's ``__all__`` in the
+    reference's order (the port may add names of its own between them);
+    every name of its ``__all__`` resolves; the reference's top-level
+    constants (``SAMPLE_RATE``, ``__version__``) carry the same values; and
+    the only names missing are those of ``NAME_GAPS``."""
+    exported, names = _top_level(package)
+    port = _port_module(package)
+    prefix = package + "." if package else ""
+    port_all = list(getattr(port, "__all__", []))
+    for n in port_all:
+        assert hasattr(port, n), f"{package}: __all__ names {n!r}, which does not resolve"
+    if exported is not None:
+        want = [n for n in exported if prefix + n not in NAME_GAPS]
+        remaining = iter(port_all)
+        assert all(n in remaining for n in want), (
+            f"{package}: the reference's __all__ {want} is not in the port's {port_all} "
+            f"in order")
+        for n in exported:
+            assert (prefix + n in NAME_GAPS) != hasattr(port, n), (package, n)
+    for n, value in names.items():
+        if value is not None:
+            assert getattr(port, n) == value, (package, n)
+
+
+@pytest.mark.parametrize("module", _reference_modules())
+def test_module_keeps_the_reference_names(module):
+    """Every public function, class and top-level name of a reference module
+    (or root tool) exists in its twin, but for ``NAME_GAPS``; a module
+    without a twin is one of ``MODULE_GAPS``."""
+    if module in MODULE_GAPS:
+        with pytest.raises(ModuleNotFoundError):
+            _port_module(module)
+        return
+    port = _port_module(module)
+    _, names = _top_level(module)
+    missing = sorted(n for n in names if not hasattr(port, n))
+    assert missing == sorted(n for n in names if f"{module}.{n}" in NAME_GAPS), missing
+
+
+def test_subpackages_import_with_jax_blocked():
+    """Every subpackage, imported first in a process where ``jax`` and
+    ``ria_tpu`` cannot be imported, with the reference's package-level
+    names taken from it."""
+    code = _blocked(
+        "import importlib\n"
+        "for sub in ('sim', 'dsp', 'sync', 'wave', 'phy', 'fec', 'utils', 'protocol',\n"
+        "            'parallel', 'runtime', 'tools'):\n"
+        "    importlib.import_module('ria_tpu_torch.' + sub)\n"
+        "from ria_tpu_torch import SAMPLE_RATE\n"
+        "from ria_tpu_torch.sim import PRESETS, apply_channel, ChannelConfig, awgn\n"
+        "from ria_tpu_torch.dsp import hann, fir_filter, analytic_signal, freq_shift_real, rms\n"
+        "from ria_tpu_torch.sync import ChirpConfig, ChirpSyncResult, detect_dual_chirp, generate\n"
+        "from ria_tpu_torch.wave import MCDPSKConfig, demodulate, modulate, preamble\n"
+        "from ria_tpu_torch.phy import DataFrame, make_fixed_data_frame, MCDPSKModem, RxFrame\n"
+        "assert SAMPLE_RATE == 48000.0 and sorted(PRESETS) == ['awgn', 'flutter', 'good', "
+        "'moderate', 'poor']\n"
+        "print('ok')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+
+
+@pytest.mark.parametrize("tool,argv,expect", [
+    ("verify_cfo_chain", ["--device", "cpu"], "PASS"),
+    ("throughput_test", ["--device", "cpu", "--assert"], "PASS: every operating point"),
+])
+def test_root_tool_twins_run_without_jax(tool, argv, expect):
+    """``python -m ria_tpu_torch.tools.<tool> --device cpu`` where ``jax``,
+    ``ria_tpu`` and ``cryptography`` cannot be imported."""
+    code = _blocked(
+        "import runpy, torch\n"
+        "torch.set_num_threads(1)\n"
+        f"sys.argv = ['{tool}'] + {argv!r}\n"
+        "try:\n"
+        f"    runpy.run_module('ria_tpu_torch.tools.{tool}', run_name='__main__')\n"
+        "except SystemExit as e:\n"
+        "    assert e.code == 0, e.code\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert expect in proc.stdout, proc.stdout

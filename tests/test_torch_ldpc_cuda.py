@@ -6,9 +6,11 @@ Imports no JAX, so it runs on a GPU host that has none:
 
 Without a card every test skips.  Tolerances: ``success`` on every row, and
 ``iterations`` and ``info_bits`` on converged rows, exactly equal;
-``llr_total`` on converged rows within 1e-3 (the kernels sum a variable's
-messages in another order than the plain decoders' matmuls, and in another
-order than each other).  The plain decoders themselves are held against the
+``llr_total`` on converged rows within 1e-3 (K2 sums a variable's messages
+in another order than its plain version's matmuls, and than K1).  K1 and the
+plain decoder sum in the same order, so ``test_k1_equals_plain_bit_for_bit``
+holds them equal on every row, the rows that never converge included.  The
+plain decoders themselves are held against the
 JAX reference by tests/test_torch_ldpc.py and tests/test_torch_ldpc_v1.py,
 the serving layer by tests/test_torch_ldpc_serving.py.
 """
@@ -59,6 +61,23 @@ def _assert_matches(got, ref):
     assert torch.equal(got[2][ok], ref[2][ok])
     assert torch.equal(got[0][ok], ref[0][ok])
     assert torch.allclose(got[3][ok], ref[3][ok], rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", list(CODE_PARAMS))
+def test_k1_equals_plain_bit_for_bit(rate, cuda_device):
+    """K1 and the plain decoder on the card, and the plain decoder on the
+    CPU, near the decoding threshold (at every rate some rows converge and
+    some run all 80 iterations): every output of every row equal."""
+    llr = _llrs(rate, 136, 3.0, seed=11)
+    fac = np.resize(LADDER, 136)
+    x, f = torch.as_tensor(llr, device=cuda_device), torch.as_tensor(fac, device=cuda_device)
+    dec = ldpc_decoder(rate, 80, cuda_device)
+    got, plain = dec(x, f), dec.plain(x, f)
+    cpu = ldpc_decoder(rate, 80, "cpu").plain(x.cpu(), f.cpu())
+    for a, b, c in zip(got, plain, cpu):
+        assert torch.equal(a.cpu(), b.cpu()) and torch.equal(b.cpu(), c)
+    assert (~got.success).any() and got.success.any()
 
 
 @pytest.mark.cuda

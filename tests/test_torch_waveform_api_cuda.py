@@ -129,7 +129,8 @@ def test_cli_loopback_on_card(cuda_device, tmp_path, capsys):
 def test_hold_k1_calls_refuses_a_wrong_result():
     """The K1-against-plain check on the CPU, where no kernel runs: the
     plain decoder's own result passes; a result that stopped after the first
-    iteration, or that is the input's hard decision, is refused."""
+    iteration, that is the input's hard decision, or whose posteriors alone
+    differ, is refused."""
     from ria_tpu_torch.fec.ldpc import DecodeResult, ldpc_decoder
 
     spec = F.NOISY_FRAMES[0]
@@ -148,13 +149,19 @@ def test_hold_k1_calls_refuses_a_wrong_result():
         for wrong in (one_iteration, hard):
             with pytest.raises(AssertionError, match="differs from the plain decoder"):
                 F.hold_k1_calls([(dec, llrs, f, wrong)])
-        # Posteriors alone apart on a row of several iterations: listed when
-        # the caller allows such drift, refused otherwise; never a changed outcome.
+        # Posteriors alone apart, by as little as one ulp on one value: refused
+        # (K1 and the plain decoder sum in one order, so they agree bit for bit).
         apart = DecodeResult(right.info_bits, right.success, right.iterations,
                              right.llr_total + 0.01)
-        assert len(F.hold_k1_calls([(dec, llrs, f, apart)], drift_after=1)[0]["drifted"]) == \
-            llrs.shape[0]
-        with pytest.raises(AssertionError, match="differs from the plain decoder"):
-            F.hold_k1_calls([(dec, llrs, f, apart)])
-        with pytest.raises(AssertionError, match="differs from the plain decoder"):
-            F.hold_k1_calls([(dec, llrs, f, one_iteration)], drift_after=1)
+        ulp = right.llr_total.clone()
+        ulp[-1, 5] = torch.nextafter(ulp[-1, 5], torch.tensor(float("inf")))
+        for wrong in (apart, DecodeResult(right.info_bits, right.success, right.iterations, ulp)):
+            with pytest.raises(AssertionError, match="differs from the plain decoder"):
+                F.hold_k1_calls([(dec, llrs, f, wrong)])
+    # Several calls of one decoder are held together: each against its own rows.
+    rows = F.hold_k1_calls([(dec, soft[:1], factors[:1], dec.plain(soft[:1], factors[:1])),
+                            (dec, soft, factors, want)])
+    assert [r["B"] for r in rows] == [1, soft.shape[0]]
+    early = ldpc_decoder("R1_4", 1, "cpu").plain(soft[:1], factors[:1])
+    with pytest.raises(AssertionError, match="K1 at B=1"):
+        F.hold_k1_calls([(dec, soft, factors, want), (dec, soft[:1], factors[:1], early)])
