@@ -5,19 +5,23 @@ Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py
 
-It builds the LDPC kernels K1 (``ria_tpu_torch/csrc/ldpc_bp.cu``) and K2
+It builds the LDPC kernels K1 (``ria_tpu_torch/csrc/ldpc_bp.cu``, in its
+float32 build and its bf16-operand build) and K2
 (``ria_tpu_torch/csrc/ldpc_bp_v1.cu``) from the checkout's sources and runs
 these phases, each printing its lines and raising on failure:
 
 1. device: the card's name and power limit, as nvidia-smi gives them;
-2. build: nvcc for sm_90a, both sources at once, with each build time and
-   ptxas resource lines; K1's and K2's registers, spill and shared bytes as
-   the CUDA runtime reports them, and how many codewords the card holds at
-   once (it fails on any spill, or if fewer than the A/B point's 512 fit);
-   K1's at R1/2 and R3/4 too, the rates the OFDM chains decode (no spill);
-3. kernels vs plain: K1 against the plain PyTorch decoder, and K2 against
-   its plain version (``plain_v1``) and against K1, on the card, for every
-   rate at B = 8 and 256 and for R1/4 at B = 512 (mixed difficulty);
+2. build: nvcc for sm_90a, the three libraries at once, with each build
+   time and ptxas resource lines; K1's (both builds) and K2's registers,
+   spill and shared bytes as the CUDA runtime reports them, and how many
+   codewords the card holds at once (it fails on any spill, or if fewer
+   than the A/B point's 512 fit); K1's at R1/2 and R3/4 too, the rates the
+   OFDM chains decode (no spill);
+3. kernels vs plain: K1 against the plain PyTorch decoder, K1's bf16 build
+   against the plain decoder's ``precision="bf16"`` (every output of every
+   row equal), and K2 against its plain version (``plain_v1``) and against
+   K1, on the card, for every rate at B = 8 and 256 and for R1/4 at B = 512
+   (mixed difficulty);
 4. main path: the MC-DPSK RX chain at the bench.py chain-1 geometry (64
    channels, window 207,328, R1/4, 4 codewords, 10 dB AWGN) from the port's
    own TX, checked against the transmitted bits and against the same chain
@@ -123,6 +127,16 @@ these phases, each printing its lines and raising on failure:
    median kbps beside the reference's).  Every K1 launch of the phase is held
    against the plain decoder, and K2 is never launched; per tool its K1
    launches and batch sizes, and the phase's seconds;
+4i. the stage profile (``ria_tpu_torch.tools.bench_profile``) at its own
+   geometry (the chain-1 batch with every frame at lead 4,000): the
+   reference tool's four rows (sync, demod, ldpc, full: ms and Msamp/s,
+   CUDA events), then one call of the chain split by its ``record_function``
+   spans (``rx.sync``, ``rx.demod``, ``rx.decode``: device ms and kernels
+   each; it fails unless they cover >= 95% of the call's device time); and
+   the bf16 path: ``make_decoder(..., precision="bf16")`` on the profile's
+   256 codewords with the counts zeroed, the bf16 build launched and the
+   float32 build not, every output equal to the plain bf16 decoder's and
+   the converged rows' bits to those sent;
 5. A/B entry point: ``ria_tpu_torch.tools.ldpc_bench`` at its default size
    (R1/4, B = 512, -1 dB), K1, K2 and the plain decoder reporting the same
    success set and bit accuracy, with K2's launch count from that run; then
@@ -154,7 +168,9 @@ these phases, each printing its lines and raising on failure:
    share, host-device synchronisations and copies; K1 at the sessions' batch
    sizes (device time, bound and share) and one trace of an S1 tick that
    decodes a frame; K1 at phase 4f's, 4g's and 4h's batch sizes (device
-   time, bound, share);
+   time, bound, share); K1's bf16 build against its plain version and
+   against the float32 build at B = 256 and the A/B point (CUDA events,
+   device time, bound and share);
 8. a JSON line of the sessions, one of phase 4f's runs, one of phase 4g's
    cases, one of phase 4h's tools, one of the waveform
    classes' ``rx_frame`` times, a JSON line of the kernels, then the last line
@@ -191,6 +207,9 @@ F32_OPS_PER_S = 67e12
 # exclusive pick, x factor, the sign applied); variable sum 1.  Plus 1 per
 # variable and iteration (channel LLR + the sum).
 OPS_PER_EDGE = 14
+# The bf16 build adds two roundings per edge and iteration (the gathered
+# posterior and the summed c2v), each a conversion there and one back.
+BF16_OPS_PER_EDGE = OPS_PER_EDGE + 4
 
 
 def log(msg: str) -> None:
@@ -256,10 +275,11 @@ def bound_us(dec, kernel: str, B: int, iterations: int) -> tuple[float, str]:
     need."""
     n, k = dec.n, dec.k
     io = B * (4 * n + 4) + B * (4 * n + k + 1 + 4)
-    t = dec.k1 if kernel == "K1" else dec.k2
+    t = dec.k2 if kernel == "K2" else dec.k1
     tables = sum(x.numel() * x.element_size() for x in (t.row, t.epos, t.jobs))
     edges = int(dec.row_mask.sum())
-    ops = iterations * (OPS_PER_EDGE * edges + n)
+    per_edge = BF16_OPS_PER_EDGE if kernel == "K1 bf16" else OPS_PER_EDGE
+    ops = iterations * (per_edge * edges + n)
     t_bytes = (io + tables) / HBM_BYTES_PER_S * 1e6
     t_ops = ops / F32_OPS_PER_S * 1e6
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -1155,6 +1175,75 @@ def tools_phase(card: str) -> dict:
             "seconds": seconds}
 
 
+COVERAGE_MIN = 0.95  # share of the chain call's device time the stage spans must cover
+
+
+def profile_phase(card: str, dev: torch.device) -> dict:
+    """Phase 4i, the stage profile and the bf16 path.  Returns {"rows": the
+    four rows' ms, "split": the span split, "launches": the bf16 path's
+    (K1 f32, K1 bf16, K2) launches, "k1_bf16_err", "seconds"}."""
+    from ria_tpu_torch.fec import ldpc_kernel
+    from ria_tpu_torch.fec.ldpc import ldpc_decoder, make_decoder
+    from ria_tpu_torch.fec.ldpc_matrix import RECOMMENDED_ITERS
+    from ria_tpu_torch.tools import bench_profile as BP
+
+    t_phase = time.perf_counter()
+    cfg, ncw, batch, window, lead = BP.geometry()
+    prof = BP.build(cfg, ncw, batch, window, lead, dev)
+    rows = {name: t * 1e3 for name, t in BP.stage_times(prof).items()}
+    log(f"[4i profile] python -m ria_tpu_torch.tools.bench_profile: geometry: batch={batch} "
+        f"window={window} ncw={ncw}, lead {lead}")
+    for name, ms in rows.items():
+        log(f"[4i profile] {name:6s} {ms:8.3f} ms  {batch * window / ms / 1e3:9.1f} Msamp/s "
+            f"(CUDA events, {BP.ITERS} calls over {BP.NBUF} buffers; {card})")
+    out = prof.rx(prof.auds[0])
+    torch.cuda.synchronize()
+    if not (out.detected.all() and out.cw_success.float().mean() >= 0.95):
+        raise AssertionError("phase 4i: the profile's chain did not detect and decode")
+    split = BP.span_split(lambda: prof.rx(prof.auds[0]), dev)
+    for name, sp in split["spans"].items():
+        log(f"[4i profile] span {name}: {sp['ms']:.3f} ms device, {sp['kernels']} kernels")
+    log(f"[4i profile] the three spans cover {split['covered']:.2%} of the call's "
+        f"{split['total_ms']:.3f} ms of device time (outside them "
+        f"{split['outside']['kernels']} pieces of work, {split['outside']['ms']:.3f} ms; {card})")
+    if split["covered"] < COVERAGE_MIN:
+        raise AssertionError(f"phase 4i: the stage spans cover {split['covered']:.2%} of the "
+                             f"call's device time, under {COVERAGE_MIN:.0%}")
+
+    # The bf16 path: the decoder entry point asked for the TPU kernel's
+    # rounding, on the profile's 256 codewords.
+    soft = prof.soft(prof.auds[0])
+    iters = RECOMMENDED_ITERS[BP.RATE]
+    decode16 = make_decoder(BP.RATE, iters, 0.75, "bf16", device=dev)
+    torch.cuda.synchronize()
+    ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_BF16 = ldpc_kernel.LAUNCHES_V1 = 0
+    got = decode16(soft)
+    torch.cuda.synchronize()
+    launches = (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_BF16, ldpc_kernel.LAUNCHES_V1)
+    dec16 = ldpc_decoder(BP.RATE, iters, dev, "bf16")
+    want = dec16.plain(soft, torch.full((soft.shape[0],), 0.75, device=dev))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = float((got.llr_total - want.llr_total).abs().max())
+    ok = got.success.cpu().numpy()
+    f32 = ldpc_decoder(BP.RATE, iters, dev)(soft, torch.full((soft.shape[0],), 0.75, device=dev))
+    log(f"[4i bf16] make_decoder({BP.RATE!r}, {iters}, 0.75, 'bf16') on B={soft.shape[0]}: "
+        f"launches K1 f32 {launches[0]}, K1 bf16 {launches[1]}, K2 {launches[2]}; success "
+        f"{int(ok.sum())}/{len(ok)} (f32 {int(f32.success.sum())}), iterations "
+        f"{iteration_counts(got.iterations.cpu().tolist())}, equal to plain bf16: {same}, max "
+        f"|llr err| {err:.3g}")
+    if launches != (0, 1, 0):
+        raise AssertionError(f"phase 4i: the bf16 path launched {launches} (f32, bf16, K2)")
+    if not same:
+        raise AssertionError("phase 4i: K1's bf16 build differs from the plain bf16 decoder")
+    if ok.mean() < 0.95 or not (got.info_bits.cpu().numpy() == prof.info)[ok].all():
+        raise AssertionError("phase 4i: the bf16 path decoded under 95% of the codewords, or "
+                             "bits other than those sent")
+    seconds = time.perf_counter() - t_phase
+    log(f"[4i profile] phase 4i took {seconds:.1f} s")
+    return {"rows": rows, "split": split, "launches": launches, "k1_bf16_err": err,
+            "seconds": seconds}
+
+
 def k1_at_sizes(rep_calls: dict, where: str, card: str) -> dict:
     """Phase 7: K1 at each batch size a phase launched it with (device time,
     bound, share).  Returns {"B=.. k=..": (device us, bound us)}."""
@@ -1247,6 +1336,8 @@ def main() -> int:
     rate_dec = ldpc_decoder(RATE, None, dev)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for name, res in (("K1", ldpc_kernel.k1_resources(rate_dec.n, rate_dec.k1.slots)),
+                      ("K1 bf16", ldpc_kernel.k1_resources(rate_dec.n, rate_dec.k1.slots,
+                                                           "bf16")),
                       ("K2", ldpc_kernel.k2_resources(rate_dec.n, rate_dec.k2.slots))):
         resident = res["blocks_per_sm"] * sms
         log(f"[2 build] {name} at {RATE}: {res['registers']} registers and "
@@ -1257,17 +1348,18 @@ def main() -> int:
             raise AssertionError(f"{name} spills, or fewer than 512 codewords are resident")
     for rate in ("R1_2", "R3_4"):
         dec_r = ldpc_decoder(rate, None, dev)
-        res = ldpc_kernel.k1_resources(dec_r.n, dec_r.k1.slots)
-        log(f"[2 build] K1 at {rate}: {res['registers']} registers and {res['local_bytes']} "
-            f"bytes of local (spill) memory per thread, {res['shared_bytes']} shared bytes per "
-            f"block; {res['blocks_per_sm']} blocks per SM x {sms} SMs = "
-            f"{res['blocks_per_sm'] * sms} codewords resident at once")
-        if res["local_bytes"]:
-            raise AssertionError(f"K1 spills at {rate}")
+        for precision in ("f32", "bf16"):
+            res = ldpc_kernel.k1_resources(dec_r.n, dec_r.k1.slots, precision)
+            log(f"[2 build] K1 ({precision}) at {rate}: {res['registers']} registers and "
+                f"{res['local_bytes']} bytes of local (spill) memory per thread, "
+                f"{res['shared_bytes']} shared bytes per block; {res['blocks_per_sm']} blocks "
+                f"per SM x {sms} SMs = {res['blocks_per_sm'] * sms} codewords resident at once")
+            if res["local_bytes"]:
+                raise AssertionError(f"K1 ({precision}) spills at {rate}")
 
     # -- 3. kernels vs plain, on the card -------------------------------------
     rng = np.random.default_rng(1234)
-    max_err = {"K1": 0.0, "K2": 0.0}
+    max_err = {"K1": 0.0, "K1 bf16": 0.0, "K2": 0.0}
     cases = [(rate, B, False) for rate in CODE_PARAMS for B in (8, 256)] + [(RATE, 512, True)]
     for rate, B, mixed in cases:
         llr, fac = llr_batch(rate, B, rng, mixed)
@@ -1291,6 +1383,20 @@ def main() -> int:
                 f"(allowed {allowed}), max |llr err| {err:.3g}")
             if n_bad > allowed:
                 raise AssertionError(f"{name} disagrees with {ref_name} on {n_bad} rows ({tag})")
+        # The bf16 build against the plain decoder's bf16 mode: bit for bit.
+        dec16 = ldpc_decoder(rate, None, dev, "bf16")
+        k1_16, plain16 = dec16(x, f), dec16.plain(x, f)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(k1_16, plain16))
+        err16 = float((k1_16.llr_total - plain16.llr_total).abs().max())
+        max_err["K1 bf16"] = max(max_err["K1 bf16"], err16)
+        log(f"[3 kernels] {tag}: K1 bf16 vs plain bf16: success {int(k1_16.success.sum())}/{B} "
+            f"(f32 K1 {int(k1.success.sum())}), mean iterations "
+            f"{k1_16.iterations.float().mean():.2f}, every output equal: {same}, max |llr err| "
+            f"{err16:.3g}, max |bf16 - f32 posterior| "
+            f"{float((k1_16.llr_total - k1.llr_total).abs().max()):.3g}")
+        if not same:
+            raise AssertionError(f"K1's bf16 build differs from the plain bf16 decoder ({tag})")
 
     # -- 4. main path ---------------------------------------------------------
     cfg, ncw, batch, window = geometry(production=True)
@@ -1464,6 +1570,10 @@ def main() -> int:
     # -- 4h. root tools -------------------------------------------------------
     tools = tools_phase(card)
     max_err["K1"] = max(max_err["K1"], tools["k1_err"])
+
+    # -- 4i. stage profile and the bf16 path ------------------------------------
+    profile = profile_phase(card, dev)
+    max_err["K1 bf16"] = max(max_err["K1 bf16"], profile["k1_bf16_err"])
 
     # -- 5. A/B entry point ---------------------------------------------------
     log(f"[5 A/B] python -m ria_tpu_torch.tools.ldpc_bench {' '.join(BENCH_ARGS)}")
@@ -1655,6 +1765,35 @@ def main() -> int:
                         f"{bounds[name][0] / us[name]:.2%} of it reached"
                         for name in us) + f" ({card})")
 
+    # K1's bf16 build at the main path's 256 codewords and the A/B point, in
+    # turns with its plain version (plain bf16, K1 bf16, K1, K1 bf16, plain
+    # bf16): the float32 build beside it on the same card.
+    dec16 = ldpc_decoder(RATE, None, dev, "bf16")
+    bf16_times = {}
+    for label, x in (("B=256 main path", soft), ("B=512 A/B -1 dB", ab_llr)):
+        f = torch.full((x.shape[0],), MIN_SUM_FACTOR, device=dev)
+        fns = {"K1 bf16": lambda: dec16(x, f), "plain bf16": lambda: dec16.plain(x, f),
+               "K1": lambda: dec(x, f)}
+        for fn in fns.values():
+            for _ in range(3):
+                fn()
+        p1 = cuda_ms(fns["plain bf16"], 5)[0]
+        b1 = cuda_ms(fns["K1 bf16"], 20)[0]
+        k1 = cuda_ms(fns["K1"], 20)[0]
+        b2 = cuda_ms(fns["K1 bf16"], 20)[0]
+        p2 = cuda_ms(fns["plain bf16"], 5)[0]
+        us16, how = kernel_us(fns["K1 bf16"], "ldpc_bp_kernel")
+        us32 = kernel_us(fns["K1"], "ldpc_bp_kernel")[0]
+        it16 = dec16(x, f).iterations
+        bnd = bound_us(dec16, "K1 bf16", x.shape[0], int(it16.sum()))
+        bf16_times[label] = ((b1 + b2) / 2, (p1 + p2) / 2, us16, bnd, us32)
+        log(f"[7 timing] LDPC {RATE} {label}, K1 bf16: mean iterations "
+            f"{it16.float().mean():.2f} (f32 {dec(x, f).iterations.float().mean():.2f}); K1 bf16 "
+            f"{b1:.4f} / {b2:.4f} ms, K1 {k1:.4f} ms, plain bf16 {p1:.4f} / {p2:.4f} ms; device "
+            f"time per launch K1 bf16 {us16:.2f} us ({how}), K1 {us32:.2f} us, ratio "
+            f"{us16 / us32:.4f}; bound {bnd[0]:.3f} us ({bnd[1]}), {bnd[0] / us16:.2%} of it "
+            f"reached ({card})")
+
     # K1 on each OFDM chain's own 256 codewords, at factor 0.9375.
     for path, (geom, orx, o_audio, _) in ofdm.items():
         _, _, o_soft = orx.soft_bits(o_audio)
@@ -1742,6 +1881,7 @@ def main() -> int:
         by_path.update({f"scale-out {name} (sum over ranks)": sum(n[i])
                         for name, n in scale["launches"].items()})
         by_path.update({f"tools {name}": n[i] for name, n in tools["launches"].items()})
+        by_path["bf16 path"] = profile["launches"][2 * i]
         kernels.append({
             "name": "ldpc_bp" if name == "K1" else "ldpc_bp_v1", "route": "cuda",
             "source": source, "replaces": replaces, "launches": n_launch,
@@ -1749,6 +1889,20 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": ms,
             "plain_ms": plain_ms, "device_us": dev_us, "bound_us": b_us,
             "bound_ms": b_us / 1e3, "bound_by": b_by, "library_ms": None})
+    # K1's bf16 build: launched by the bf16 path of phase 4i (the decoder
+    # entry point with precision="bf16"); times at the main path's 256
+    # codewords, and at the A/B point beside them.
+    ms, plain_ms, dev_us, (b_us, b_by), _ = bf16_times["B=256 main path"]
+    ab16 = bf16_times["B=512 A/B -1 dB"]
+    kernels.append({
+        "name": "ldpc_bp_bf16", "route": "cuda", "source": "ria_tpu_torch/csrc/ldpc_bp.cu",
+        "nvcc_defines": ["-DRIA_BF16_OPERANDS"], "replaces": "ria_tpu/fec/ldpc_pallas.py:39",
+        "launches": profile["launches"][1], "launches_per_call": profile["launches"][1],
+        "launches_per_call_by_path": {"bf16 path": profile["launches"][1]},
+        "max_abs_err": max_err["K1 bf16"], "ms": ms, "plain_ms": plain_ms, "device_us": dev_us,
+        "bound_us": b_us, "bound_ms": b_us / 1e3, "bound_by": b_by, "library_ms": None,
+        "ab_point": {"ms": ab16[0], "plain_ms": ab16[1], "device_us": ab16[2],
+                     "bound_us": ab16[3][0], "bound_by": ab16[3][1], "f32_device_us": ab16[4]}})
     # K1's device time and bound on each waveform path's 64 codewords.
     kernels[0]["device_us_by_path"] = {path: t[0] for path, t in path_k1.items()}
     kernels[0]["bound_us_by_path"] = {path: t[1][0] for path, t in path_k1.items()}
@@ -1763,7 +1917,7 @@ def main() -> int:
         b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_scale.items()}
     kernels[0]["tools_us_by_batch"] = {
         b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_tools.items()}
-    for i, kernel in enumerate(kernels):
+    for i, kernel in enumerate(kernels[:2]):
         kernel["scaleout_launches_per_rank"] = {name: n[i]
                                                 for name, n in scale["launches"].items()}
     log(json.dumps({"sessions": sessions["runs"], "card": card}))
@@ -1772,6 +1926,8 @@ def main() -> int:
     log(json.dumps({"scale_out": scale["cases"], "ranks": 4, "backend": scale["backend"],
                     "phase_s": scale["seconds"], "card": card}))
     log(json.dumps({"tools": tools["summary"], "phase_s": tools["seconds"], "card": card}))
+    log(json.dumps({"bench_profile": {"ms": profile["rows"], "split": profile["split"]},
+                    "phase_s": profile["seconds"], "card": card}))
     # The whole call on the host's clock: the API's number, not a kernel's.
     log(json.dumps({"rx_frame_ms_by_class": {name: t[0] for name, t in api_ms.items()},
                     "spectral_snr_ms_in_call_by_class": {name: t[3] for name, t in api_ms.items()},

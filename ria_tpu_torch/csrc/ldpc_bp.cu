@@ -17,9 +17,21 @@
 //     LLR.
 // The TPU kernel's one-hot gather/scatter matmuls exist only to work around
 // Mosaic's lowering limits; here gathers and the scatter are plain index
-// loads from shared memory, so no bf16 rounding of gathered LLRs happens.
-// The tensor cores (wgmma) do not apply: the work is gathers, compares and
-// exact f32 adds, with no product to feed them.
+// loads from shared memory.  The tensor cores (wgmma) do not apply: the work
+// is gathers, compares and exact f32 adds, with no product to feed them.
+//
+// Two builds of this source.  By default everything is float32.  Built with
+// -DRIA_BF16_OPERANDS, it computes make_decoder_vf(..., precision="bf16"),
+// the TPU kernel's own arithmetic: its matmuls take bfloat16 operands and
+// accumulate in float32, so three values are rounded to bfloat16 (nearest
+// even) where those matmuls read them, by operand(): the channel LLR at the
+// first gather, the posterior at each gather, and each c2v as the variable
+// sum adds it.  The sums, the clamp of (rounded gather - float32 c2v) and the
+// factor stay float32, and the parity reads the float32 posterior's sign, as
+// the reference's bf16 mode does (the TPU kernel reads the rounded gather's;
+// the two differ only for |LLR| below bfloat16's smallest subnormal).  The
+// plain PyTorch decoder of the same precision rounds at the same places, so
+// each build equals it bit for bit.
 //
 // Layout: one thread block per codeword, 512 threads.  Thread c owns check c
 // (m <= 486 for every rate) and one or two variable "jobs".  Shared memory
@@ -96,6 +108,9 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+#ifdef RIA_BF16_OPERANDS
+#include <cuda_bf16.h>
+#endif
 
 namespace {
 
@@ -114,6 +129,16 @@ __device__ __forceinline__ unsigned field(unsigned x, unsigned pos, unsigned len
   unsigned r;
   asm volatile("bfe.u32 %0, %1, %2, %3;" : "=r"(r) : "r"(x), "r"(pos), "r"(len));
   return r;
+}
+
+// A matmul operand of the TPU kernel: rounded to bfloat16 in the bf16 build,
+// unchanged in the float32 one.
+__device__ __forceinline__ float operand(float x) {
+#ifdef RIA_BF16_OPERANDS
+  return __bfloat162float(__float2bfloat16_rn(x));
+#else
+  return x;
+#endif
 }
 
 // The float `bytes` bytes into `base` (a shared array).
@@ -144,10 +169,10 @@ __device__ __forceinline__ void variable_sum(int job, float llr, float* c2v_s, i
 #pragma unroll 1
   for (int q = 0; q < cells; ++q) {
     const float4 a = cell[q * stride];
-    s += a.x;
-    s += a.y;
-    s += a.z;
-    s += a.w;
+    s += operand(a.x);
+    s += operand(a.y);
+    s += operand(a.z);
+    s += operand(a.w);
   }
   post[field(job, 0, 10)] = llr + s;
 }
@@ -260,7 +285,7 @@ ldpc_bp_kernel(const float* __restrict__ llr, const float* __restrict__ factors,
   if (owner && max_iters > 0) {
     MinSum acc;
 #pragma unroll
-    for (int d = 0; d < kMaxDeg; ++d) acc.absorb(at(post, field(edge[d], 0, 16)), d);
+    for (int d = 0; d < kMaxDeg; ++d) acc.absorb(operand(at(post, field(edge[d], 0, 16))), d);
     acc.emit(edge, fac, c2v_s);
   }
   __syncthreads();  // c2v of iteration 1 published
@@ -282,7 +307,7 @@ ldpc_bp_kernel(const float* __restrict__ llr, const float* __restrict__ factors,
         // This iteration's c2v, read back from the slot it was stored in.
         const float g = at(post, field(edge[d], 0, 16));
         const float c2v = at(c2v_s, field(edge[d], 16, 16));
-        acc.absorb(fminf(fmaxf(g - c2v, -kClamp), kClamp), d);
+        acc.absorb(fminf(fmaxf(operand(g) - c2v, -kClamp), kClamp), d);
         parity ^= g < 0.0f ? 1u : 0u;
       }
     }

@@ -1,6 +1,6 @@
 """HARQ chase-combining cache: LLR accumulation across retransmissions.
 
-Host copy of ``ria_tpu/fec/chase.py`` (numpy and ``time.monotonic`` only).
+Host copy of ``ria_tpu/fec/chase.py`` (numpy and a clock only).
 
 Contract from the reference (src/fec/chase_cache.{hpp,cpp}):
 - keyed by (seq, src_hash, dst_hash); per-codeword 648-LLR accumulators;
@@ -8,6 +8,12 @@ Contract from the reference (src/fec/chase_cache.{hpp,cpp}):
   ~3 dB gain per doubling of combines; MAX_COMBINES=4 per CW;
 - per-CW decoded flags stop further combining; 16 entries, 30 s TTL with
   LRU-style eviction; hit/miss/store/combine/recovery stats.
+
+The TTL runs on ``clock`` (seconds): ``time.monotonic`` when none is given,
+as in the reference, and a station's own protocol time when a ``Station``
+owns the cache.  The reference's stations keep the wall clock, so in its
+simulator a slower host expires entries after fewer simulated blocks and a
+session's outcome depends on the host's speed; the port's does not.
 
 Host-side state (protocol control plane); the LLR adds are numpy on 648-float
 vectors — negligible next to decode, which stays batched on the device.
@@ -38,8 +44,8 @@ class ChaseEntry:
     cw_soft: dict = field(default_factory=dict)       # cw_idx -> np[648]
     cw_combines: dict = field(default_factory=dict)   # cw_idx -> int
     cw_decoded: set = field(default_factory=set)
-    created: float = field(default_factory=time.monotonic)
-    last_access: float = field(default_factory=time.monotonic)
+    created: float = 0.0
+    last_access: float = 0.0
 
 
 @dataclass
@@ -55,12 +61,16 @@ class ChaseStats:
 
 class ChaseCache:
     def __init__(self, enabled: bool = True, max_entries: int = 16,
-                 entry_ttl_s: float = 30.0):
+                 entry_ttl_s: float = 30.0, clock=None):
         self.enabled = enabled
+        self.clock = clock
         self.max_entries = max_entries
         self.entry_ttl_s = entry_ttl_s
         self._cache: dict[ChaseKey, ChaseEntry] = {}
         self.stats = ChaseStats()
+
+    def _now(self) -> float:
+        return time.monotonic() if self.clock is None else self.clock()
 
     def _prune(self, now: float) -> None:
         expired = [k for k, e in self._cache.items()
@@ -78,11 +88,11 @@ class ChaseCache:
         """Store/combine soft bits from a failed CW decode. Returns stored?"""
         if not self.enabled:
             return False
-        now = time.monotonic()
+        now = self._now()
         entry = self._cache.get(key)
         if entry is None:
             self._prune(now)
-            entry = ChaseEntry(total_cw=total_cw, frame_type=frame_type)
+            entry = ChaseEntry(total_cw=total_cw, frame_type=frame_type, created=now)
             self._cache[key] = entry
         entry.last_access = now
         if cw_index in entry.cw_decoded:
@@ -105,7 +115,7 @@ class ChaseCache:
         if entry is None or cw_index not in entry.cw_soft:
             self.stats.cache_misses += 1
             return None
-        entry.last_access = time.monotonic()
+        entry.last_access = self._now()
         self.stats.cache_hits += 1
         return entry.cw_soft[cw_index]
 

@@ -27,6 +27,12 @@ without a card, the default raises instead of running on the host.
 Numeric contract (as the reference): normalized min-sum with a per-row
 factor, message clamp +/-50, hard-decision parity check after every
 iteration with a per-codeword freeze, positive LLR => bit 0.
+
+``precision`` (the reference's argument): ``"f32"``, the default, keeps
+everything float32; ``"bf16"`` rounds the operands of the reference's
+gather and scatter matmuls to bfloat16 (round to nearest even) and sums in
+float32, which is also what the TPU kernel ``make_pallas_decoder`` computes.
+K1 has a build of each (``ldpc_kernel.bp_decode``'s ``precision``).
 """
 
 from __future__ import annotations
@@ -51,6 +57,21 @@ from ria_tpu_torch.utils.bits import bits_to_bytes, bytes_to_bits
 from ria_tpu_torch.utils.device import resolve_device
 
 
+PRECISIONS = ("f32", "bf16")
+
+
+def _check_precision(precision: str) -> str:
+    if precision not in PRECISIONS:
+        raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+    return precision
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """``x`` rounded to bfloat16 (nearest even, as ``astype(jnp.bfloat16)``)
+    and back to float32."""
+    return x.to(torch.bfloat16).float()
+
+
 class DecodeResult(NamedTuple):
     info_bits: torch.Tensor   # [B, k] uint8
     success: torch.Tensor     # [B] bool
@@ -66,12 +87,15 @@ class LDPCDecoder(nn.Module):
     ``k1_row``/``k1_epos``/``k1_jobs`` (:func:`ldpc_kernel.k1_layout`,
     checked once into ``self.k1``) and K2's ``k2_row``/``k2_epos``/``k2_jobs``
     (:func:`ldpc_kernel.k2_layout`, checked once into ``self.k2``).
+    ``precision`` picks the plain decoder's rounding and K1's build; K2 and
+    :meth:`plain_v1` are float32 only.
     """
 
     def __init__(self, code: LDPCCode, max_iters: int | None = None,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", precision: str = "f32"):
         super().__init__()
         dev = resolve_device(device)
+        self.precision = _check_precision(precision)
         self.k, self.m, self.n, self.D = code.k, code.m, code.n, code.max_degree
         self.max_iters = RECOMMENDED_ITERS[code.rate] if max_iters is None else max_iters
         self.register_buffer("gather", torch.as_tensor(code.gather, device=dev))
@@ -96,7 +120,7 @@ class LDPCDecoder(nn.Module):
         if llrs.device.type == "cuda":
             return DecodeResult(*ldpc_kernel.bp_decode(
                 llrs.float().contiguous(), factors.float().contiguous(), self.k1,
-                self.k, self.max_iters))
+                self.k, self.max_iters, self.precision))
         if llrs.device.type == "cpu":
             return self.plain(llrs, factors)
         raise ValueError(f"unsupported device {llrs.device}")
@@ -131,23 +155,35 @@ class LDPCDecoder(nn.Module):
 
     def plain(self, llrs: torch.Tensor, factors: torch.Tensor) -> DecodeResult:
         """The plain PyTorch decoder (``make_decoder_vf`` of the reference),
-        bit-identical to K1."""
+        bit-identical to K1's build of the same precision.
+
+        With ``"bf16"`` three operands are rounded to bfloat16 where the
+        reference's matmuls take them: the channel LLRs at the first gather,
+        the posteriors at each gather, and each check message before the
+        variable sum.  The sums, ``edge - c2v`` (the rounded gather less the
+        float32 message), the clamp and the factor stay float32.  The parity
+        check reads the float32 posteriors' signs, as the reference's bf16
+        mode does; the TPU kernel reads the rounded gather's, which differs
+        only for |LLR| below bfloat16's smallest subnormal (2**-133)."""
         B = llrs.shape[0]
         m, D, g = self.m, self.D, self.gather
+        bf16 = self.precision == "bf16"
+        rnd = _bf16 if bf16 else (lambda x: x)
         llr_in = llrs.float()
         factors = factors.float()
-        v2c = (llr_in @ g.T).reshape(B, m, D)
+        v2c = (rnd(llr_in) @ g.T).reshape(B, m, D)
         llr_total = llr_in
         done = torch.zeros(B, dtype=torch.bool, device=llrs.device)
         iters = torch.zeros(B, dtype=torch.int32, device=llrs.device)
         it = 0
         while it < self.max_iters and not bool(done.all()):
             c2v = self._check_update(v2c, factors)
-            llr_new = llr_in + self._variable_sum(c2v)
+            llr_new = llr_in + self._variable_sum(rnd(c2v))
             # One gather serves both the next v2c and the parity check.
-            edge = (llr_new @ g.T).reshape(B, m, D)
+            edge = (rnd(llr_new) @ g.T).reshape(B, m, D)
             v2c_new = torch.clamp(edge - c2v, -LLR_CLAMP, LLR_CLAMP)
-            edge_bits = torch.where(self.row_mask, (edge < 0).float(), 0.0)
+            hard = (llr_new[:, self.row_idx] < 0) if bf16 else (edge < 0)
+            edge_bits = torch.where(self.row_mask, hard.float(), 0.0)
             ok = torch.all(torch.sum(edge_bits, dim=-1) % 2.0 == 0.0, dim=-1)
             upd = ~done
             llr_total = torch.where(upd[:, None], llr_new, llr_total)
@@ -238,26 +274,27 @@ def _var_edges(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def ldpc_decoder(rate: str, max_iters: int | None = None,
-                 device: str | torch.device = "cuda") -> LDPCDecoder:
-    """Cached :class:`LDPCDecoder` for a rate on a device."""
-    return LDPCDecoder(get_code(rate), max_iters, device)
+                 device: str | torch.device = "cuda", precision: str = "f32") -> LDPCDecoder:
+    """Cached :class:`LDPCDecoder` for a rate and precision on a device."""
+    return LDPCDecoder(get_code(rate), max_iters, device, precision)
 
 
-def make_decoder_vf(rate: str, max_iters: int | None = None,
+def make_decoder_vf(rate: str, max_iters: int | None = None, precision: str = "f32",
                     device: str | torch.device = "cuda"):
     """The plain PyTorch decoder with per-row factors:
-    (llrs [B, 648], factors [B]) -> DecodeResult, on any device.  The
+    (llrs [B, 648], factors [B]) -> DecodeResult, on any device, in
+    ``precision`` (``"f32"`` or ``"bf16"``, the reference's argument).  The
     yardstick K1 is held against; nothing on the main path calls it when a
     card is present."""
-    return ldpc_decoder(rate, max_iters, device).plain
+    return ldpc_decoder(rate, max_iters, device, precision).plain
 
 
 def make_decoder(rate: str, max_iters: int | None = None,
-                 min_sum_factor: float = MIN_SUM_FACTOR,
+                 min_sum_factor: float = MIN_SUM_FACTOR, precision: str = "f32",
                  device: str | torch.device = "cuda"):
-    """Fixed-factor decoder llrs [B, 648] -> DecodeResult: K1 for CUDA
-    tensors, the plain decoder for CPU tensors."""
-    dec = ldpc_decoder(rate, max_iters, device)
+    """Fixed-factor decoder llrs [B, 648] -> DecodeResult: K1's build of
+    ``precision`` for CUDA tensors, the plain decoder for CPU tensors."""
+    dec = ldpc_decoder(rate, max_iters, device, precision)
 
     def decode(llrs: torch.Tensor) -> DecodeResult:
         factors = torch.full((llrs.shape[0],), min_sum_factor, dtype=torch.float32,
@@ -304,7 +341,7 @@ def make_tile_decoder(rate: str, max_iters: int | None = None,
     the plain decoder on the CPU.  ``pad_to`` is always None: K1 exits per
     codeword and needs no tile padding, so the reference's
     ``pallas_interpret`` option has no counterpart."""
-    return make_decoder(rate, max_iters, min_sum_factor, device), None
+    return make_decoder(rate, max_iters, min_sum_factor, device=device), None
 
 
 def make_encoder(rate: str, device: str | torch.device = "cuda"):
@@ -329,7 +366,7 @@ def decode_chunked(llrs, rate: str, chunk: int = 512, max_iters: int | None = No
     straggler's reach; K1 exits per codeword anyway.  Device rule as
     :func:`decode_batch`."""
     llrs = _on_device(llrs, device)
-    dec = make_decoder(rate, max_iters, min_sum_factor, llrs.device)
+    dec = make_decoder(rate, max_iters, min_sum_factor, device=llrs.device)
     B = llrs.shape[0]
     if B <= chunk:
         return dec(llrs)

@@ -1,7 +1,10 @@
 """LDPC min-sum belief-propagation kernels in CUDA C++, bound with ctypes.
 
 - K1 (``csrc/ldpc_bp.cu``, :func:`bp_decode`) replaces the Pallas TPU kernel
-  ``ria_tpu/fec/ldpc_pallas.py::make_pallas_decoder``;
+  ``ria_tpu/fec/ldpc_pallas.py::make_pallas_decoder``, in two builds of one
+  source: float32 (the default) and, with ``-DRIA_BF16_OPERANDS``, the
+  TPU kernel's own rounding of its matmul operands to bfloat16
+  (``precision="bf16"``);
 - K2 (``csrc/ldpc_bp_v1.cu``, :func:`bp_decode_v1`) replaces
   ``ria_tpu/fec/ldpc_pallas.py::make_pallas_decoder_v1``.
 
@@ -35,9 +38,11 @@ import torch
 
 # Kernel launches since start-up (or since a caller last reset them).  Counted
 # only where each kernel is launched, so a run can show that it went through
-# K1 (LAUNCHES) or K2 (LAUNCHES_V1).  Stations decode from threads of their
-# own (``sim/continuous.py``), so each count moves under ``_COUNT_LOCK``.
+# K1's float32 build (LAUNCHES), its bf16-operand build (LAUNCHES_BF16) or K2
+# (LAUNCHES_V1).  Stations decode from threads of their own
+# (``sim/continuous.py``), so each count moves under ``_COUNT_LOCK``.
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
 LAUNCHES_V1 = 0
 _COUNT_LOCK = threading.Lock()
 # One build at a time in a process, and one library load: two threads whose
@@ -56,6 +61,15 @@ _SOURCE_V1 = _CSRC / "ldpc_bp_v1.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ria_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# Each library: (source, extra nvcc flags).  The C entry points are named
+# after the source (``ria_<stem>_decode``).
+LIBRARIES = {
+    "ldpc_bp": (_SOURCE, ()),
+    "ldpc_bp_bf16": (_SOURCE, ("-DRIA_BF16_OPERANDS",)),
+    "ldpc_bp_v1": (_SOURCE_V1, ()),
+}
+# K1's library for each precision.
+K1_LIBRARY = {"f32": "ldpc_bp", "bf16": "ldpc_bp_bf16"}
 
 
 def csc_tables(row_idx: np.ndarray, row_mask: np.ndarray,
@@ -421,9 +435,9 @@ def _compile_missing(sources: dict[str, tuple[Path, tuple[str, ...]]]) -> dict[s
 
 
 def build() -> dict[str, Build]:
-    """Compile every kernel whose library is missing, all at once.  Returns
-    ``{"ldpc_bp": ..., "ldpc_bp_v1": ...}``."""
-    return compile_libraries({s.stem: (s, ()) for s in (_SOURCE, _SOURCE_V1)})
+    """Compile every library of :data:`LIBRARIES` that is missing, all at
+    once.  Returns ``{"ldpc_bp": ..., "ldpc_bp_bf16": ..., "ldpc_bp_v1": ...}``."""
+    return compile_libraries(dict(LIBRARIES))
 
 
 # Pointer and int arguments of each C entry point (then the stream).
@@ -450,7 +464,7 @@ def _entry(name: str):
     lib = _library(name)
     with _LOAD_LOCK:
         if name not in _ENTRIES:
-            _ENTRIES[name] = entry_point(lib, name)
+            _ENTRIES[name] = entry_point(lib, LIBRARIES[name][0].stem)
         return _ENTRIES[name]
 
 
@@ -469,9 +483,16 @@ def resources(lib: ctypes.CDLL, name: str, n: int, slots: int) -> dict[str, int]
     return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
 
 
-def k1_resources(n: int, slots: int) -> dict[str, int]:
-    """:func:`resources` of the built K1."""
-    return resources(_library("ldpc_bp"), "ldpc_bp", n, slots)
+def k1_library(precision: str) -> str:
+    """K1's library for ``precision`` (``"f32"`` or ``"bf16"``)."""
+    if precision not in K1_LIBRARY:
+        raise ValueError(f"K1 has no build for precision {precision!r}")
+    return K1_LIBRARY[precision]
+
+
+def k1_resources(n: int, slots: int, precision: str = "f32") -> dict[str, int]:
+    """:func:`resources` of K1's build of ``precision``."""
+    return resources(_library(k1_library(precision)), "ldpc_bp", n, slots)
 
 
 def k2_resources(n: int, slots: int) -> dict[str, int]:
@@ -492,18 +513,24 @@ def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
 
 
 def bp_decode(llrs: torch.Tensor, factors: torch.Tensor, tables: K1Tables,
-              k: int, max_iters: int):
+              k: int, max_iters: int, precision: str = "f32"):
     """Launch K1 on CUDA tensors: (info_bits, success, iterations, llr_total).
 
     llrs [B, n] f32 and factors [B] f32, contiguous, on the device of
     ``tables`` (:func:`k1_tables`).  Outputs: info_bits [B, k] uint8,
     success [B] bool, iterations [B] int32, llr_total [B, n] f32.
+    ``precision`` picks the build: ``"f32"`` (counted in ``LAUNCHES``) or
+    ``"bf16"``, bfloat16 operands (``LAUNCHES_BF16``).
     """
-    global LAUNCHES
-    out, launched = launch(lambda: _entry("ldpc_bp"), "K1", llrs, factors, tables, k,
-                           max_iters)
+    global LAUNCHES, LAUNCHES_BF16
+    lib = k1_library(precision)
+    name = "K1" if precision == "f32" else "K1 bf16"
+    out, launched = launch(lambda: _entry(lib), name, llrs, factors, tables, k, max_iters)
     with _COUNT_LOCK:
-        LAUNCHES += launched
+        if precision == "f32":
+            LAUNCHES += launched
+        else:
+            LAUNCHES_BF16 += launched
     return out
 
 

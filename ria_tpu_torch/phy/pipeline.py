@@ -9,7 +9,11 @@ runs as one batched program for B independent channels at once:
   channel estimate, MMSE (or pilot-tracking) equalization, soft demap,
   frame and channel deinterleave as static gathers, batched LDPC BP.
 
-On a CUDA device the decoder is kernel K1 (``csrc/ldpc_bp.cu``).
+On a CUDA device the decoder is kernel K1 (``csrc/ldpc_bp.cu``).  Each RX
+call marks its three stages with ``torch.profiler.record_function`` spans,
+``rx.sync``, ``rx.demod`` (frame slice, demodulation, deinterleave) and
+``rx.decode``, so one profiled call splits by stage
+(``tools/bench_profile.py``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ria_tpu_torch.fec.interleave import FRAME_CODEWORDS, channel_perm, frame_perm
 from ria_tpu_torch.fec.ldpc import LDPCDecoder, ldpc_decoder
@@ -101,31 +106,34 @@ class RxPipeline(nn.Module):
     def soft_bits(self, audio: torch.Tensor):
         """Sync, frame slice and demodulation: (sync, demod, codeword LLRs
         [B * NCW, 648]), the decoder's input."""
-        sync = self.sync(audio)
-        # Frame slice, clamped into the window as jax.lax.dynamic_slice does.
-        start = torch.clamp(sync.start + self.cfg.chirp.total_samples, 0,
-                            max(self.window_samples - self.frame_need, 0))
-        frames = window_slice(audio.float(), start, self.frame_need)
-        demod = self.demod(frames, sync.cfo_hz)
-        soft = demod.soft_bits[..., : self.num_bits].reshape(-1, LDPC_BITS).contiguous()
+        with record_function("rx.sync"):
+            sync = self.sync(audio)
+        with record_function("rx.demod"):
+            # Frame slice, clamped into the window as jax.lax.dynamic_slice does.
+            start = torch.clamp(sync.start + self.cfg.chirp.total_samples, 0,
+                                max(self.window_samples - self.frame_need, 0))
+            frames = window_slice(audio.float(), start, self.frame_need)
+            demod = self.demod(frames, sync.cfo_hz)
+            soft = demod.soft_bits[..., : self.num_bits].reshape(-1, LDPC_BITS).contiguous()
         return sync, demod, soft
 
     def forward(self, audio: torch.Tensor) -> RxBatchResult:
         B = audio.shape[0]
         sync, demod, soft = self.soft_bits(audio)
-        factors = torch.full((soft.shape[0],), self.min_sum_factor, dtype=torch.float32,
-                             device=soft.device)
-        dec = self.decoder(soft, factors)
-        k = dec.info_bits.shape[-1]
-        return RxBatchResult(
-            detected=sync.detected,
-            start=sync.start,
-            cfo_hz=sync.cfo_hz,
-            cw_success=dec.success.reshape(B, self.num_codewords) & sync.detected[:, None],
-            info_bits=dec.info_bits.reshape(B, self.num_codewords, k),
-            iterations=dec.iterations.reshape(B, self.num_codewords),
-            snr_db=demod.snr_estimate_db,
-        )
+        with record_function("rx.decode"):
+            factors = torch.full((soft.shape[0],), self.min_sum_factor, dtype=torch.float32,
+                                 device=soft.device)
+            dec = self.decoder(soft, factors)
+            k = dec.info_bits.shape[-1]
+            return RxBatchResult(
+                detected=sync.detected,
+                start=sync.start,
+                cfo_hz=sync.cfo_hz,
+                cw_success=dec.success.reshape(B, self.num_codewords) & sync.detected[:, None],
+                info_bits=dec.info_bits.reshape(B, self.num_codewords, k),
+                iterations=dec.iterations.reshape(B, self.num_codewords),
+                snr_db=demod.snr_estimate_db,
+            )
 
 
 def make_rx_pipeline(cfg: MCDPSKConfig, rate: str, num_codewords: int,
@@ -177,35 +185,39 @@ class OFDMRxPipeline(nn.Module):
     def soft_bits(self, audio: torch.Tensor):
         """Sync, frame slice, demodulation and deinterleave: (sync, demod,
         codeword LLRs [B * 4, 648]), the decoder's input."""
-        sync = self.sync(audio)
-        # Undetected channels slice from 0; the start is clamped into the
-        # window as jax.lax.dynamic_slice does.
-        start = torch.clamp(torch.where(sync.detected, sync.lts_start, 0), 0,
-                            max(self.window_samples - self.need, 0))
-        frames = window_slice(audio.float(), start, self.need)
-        demod = self.demod(frames, sync.cfo_hz)
-        soft = demod.soft_bits[..., : self.num_bits][..., self.frame_idx]
-        cw_soft = soft.reshape(-1, FRAME_CODEWORDS, LDPC_BITS)
-        if self.ci_idx is not None:
-            cw_soft = cw_soft[..., self.ci_idx]
-        return sync, demod, cw_soft.reshape(-1, LDPC_BITS).contiguous()
+        with record_function("rx.sync"):
+            sync = self.sync(audio)
+        with record_function("rx.demod"):
+            # Undetected channels slice from 0; the start is clamped into the
+            # window as jax.lax.dynamic_slice does.
+            start = torch.clamp(torch.where(sync.detected, sync.lts_start, 0), 0,
+                                max(self.window_samples - self.need, 0))
+            frames = window_slice(audio.float(), start, self.need)
+            demod = self.demod(frames, sync.cfo_hz)
+            soft = demod.soft_bits[..., : self.num_bits][..., self.frame_idx]
+            cw_soft = soft.reshape(-1, FRAME_CODEWORDS, LDPC_BITS)
+            if self.ci_idx is not None:
+                cw_soft = cw_soft[..., self.ci_idx]
+            soft = cw_soft.reshape(-1, LDPC_BITS).contiguous()
+        return sync, demod, soft
 
     def forward(self, audio: torch.Tensor) -> OFDMRxBatchResult:
         B = audio.shape[0]
         sync, demod, soft = self.soft_bits(audio)
-        factors = torch.full((soft.shape[0],), self.min_sum_factor, dtype=torch.float32,
-                             device=soft.device)
-        dec = self.decoder(soft, factors)
-        k = dec.info_bits.shape[-1]
-        return OFDMRxBatchResult(
-            detected=sync.detected,
-            lts_start=sync.lts_start,
-            cfo_hz=sync.cfo_hz,
-            cw_success=dec.success.reshape(B, FRAME_CODEWORDS) & sync.detected[:, None],
-            info_bits=dec.info_bits.reshape(B, FRAME_CODEWORDS, k),
-            iterations=dec.iterations.reshape(B, FRAME_CODEWORDS),
-            snr_db=demod.snr_db,
-        )
+        with record_function("rx.decode"):
+            factors = torch.full((soft.shape[0],), self.min_sum_factor, dtype=torch.float32,
+                                 device=soft.device)
+            dec = self.decoder(soft, factors)
+            k = dec.info_bits.shape[-1]
+            return OFDMRxBatchResult(
+                detected=sync.detected,
+                lts_start=sync.lts_start,
+                cfo_hz=sync.cfo_hz,
+                cw_success=dec.success.reshape(B, FRAME_CODEWORDS) & sync.detected[:, None],
+                info_bits=dec.info_bits.reshape(B, FRAME_CODEWORDS, k),
+                iterations=dec.iterations.reshape(B, FRAME_CODEWORDS),
+                snr_db=demod.snr_db,
+            )
 
 
 def make_ofdm_rx_pipeline(cfg: OFDMConfig, rate: str, window_samples: int,

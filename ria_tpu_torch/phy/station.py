@@ -160,7 +160,10 @@ class Station:
         from ria_tpu_torch.fec.chase import ChaseCache
         from ria_tpu_torch.phy.adaptive import LinkAdapter
 
-        self.chase = ChaseCache() if chase_enabled else None
+        # The chase TTL runs on the protocol's time, as every other timer
+        # here does, so a simulated session does not depend on the host's
+        # speed (the reference's cache reads the wall clock).
+        self.chase = ChaseCache(clock=self._now_s) if chase_enabled else None
         self.link_adapter = LinkAdapter()
         self._now_ms = 0.0
         # MC-DPSK profile-ladder state (see _feed_mc_profile).  Median
@@ -1159,6 +1162,10 @@ class Station:
         if self._mc_want_hits >= 4:
             self.conn.request_mc_profile(*want)
             self._mc_want, self._mc_want_hits = None, 0
+
+    def _now_s(self) -> float:
+        """The protocol's time in seconds: the sum of ``tick``'s elapsed ms."""
+        return self._now_ms / 1000.0
 
     def tick(self, elapsed_ms: int, poll: bool = True):
         """Advance protocol timers; optionally attempt a decode pass.

@@ -139,6 +139,18 @@ def run(argv: list[str] | None = None) -> list[dict]:
     return rows
 
 
+def stream_main(argv: list[str] | None = None) -> list[dict]:
+    """The reference's ``stream_main``: :func:`run` with ``--stream`` (strong
+    scaling of the time-block stream RX); ``argv`` adds options."""
+    return run(["--stream", *(argv or [])])
+
+
+def ofdm_stream_main(argv: list[str] | None = None) -> list[dict]:
+    """The reference's ``ofdm_stream_main``: :func:`run` with
+    ``--ofdm-stream``; ``argv`` adds options."""
+    return run(["--ofdm-stream", *(argv or [])])
+
+
 def main(argv: list[str] | None = None) -> int:
     run(argv)
     return 0

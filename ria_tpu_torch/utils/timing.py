@@ -81,10 +81,13 @@ def kernel_us(fn, kernel: str, reps: int = 20) -> tuple[float, str]:
 def _device_summary(events, top: int = 3) -> tuple[int, float, list[tuple[str, float]]]:
     """(device activities, the microseconds in the union of their intervals,
     the ``top`` activity names by device microseconds) of a profiler run's
-    events: every kernel, copy and memset on the card."""
+    events: every kernel, copy and memset on the card (not the device-side
+    ranges of ``record_function`` spans, which cover the gaps between their
+    kernels)."""
     from torch.autograd import DeviceType
 
-    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not is_annotation(e)]
     spans = sorted((e.time_range.start, e.time_range.end) for e in device)
     busy, end = 0.0, float("-inf")
     for lo, hi in spans:
@@ -95,6 +98,13 @@ def _device_summary(events, top: int = 3) -> tuple[int, float, list[tuple[str, f
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.end - e.time_range.start
     return len(spans), busy, sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+
+
+def is_annotation(e) -> bool:
+    """Whether a profiler event is a ``record_function`` span (on the host
+    or its device-side range) rather than work."""
+    return bool(getattr(e, "is_user_annotation", False)) or \
+        "annotation" in str(getattr(e, "activity_type", "")).lower()
 
 
 def trace_call(fn, top: int = 3) -> tuple[int, float, list[tuple[str, float]]]:
@@ -151,7 +161,8 @@ def trace_syncs(fn) -> dict:
         n_dev, busy, top = _device_summary(events)
         if n_dev:
             break
-    on_card = [e.name for e in events if e.device_type == DeviceType.CUDA]
+    on_card = [e.name for e in events if e.device_type == DeviceType.CUDA
+               and not is_annotation(e)]
     return {
         "device": n_dev, "busy_us": busy, "top": top,
         "syncs": sum(e.name in SYNC_CALLS for e in events if e.device_type != DeviceType.CUDA),

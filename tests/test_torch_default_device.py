@@ -282,6 +282,7 @@ TOOLS = {
     "throughput_test": [],
     "goodput": ["--seeds", "1"],
     "adaptive_session_sweep": ["--snrs", "12"],
+    "bench_profile": [],
 }
 
 

@@ -149,18 +149,8 @@ def test_dual_modem_tool_runs_without_jax_or_cryptography():
 # ``ast``, so no JAX is imported, and held against its twin in the port.
 PACKAGES = ["", "sim", "dsp", "sync", "wave", "phy", "fec", "utils", "protocol", "parallel",
             "runtime"]
-# Reference names the port does not carry, each with its reason.
-NAME_GAPS = {
-    "utils.jnp_bits_to_bytes_array": "a helper on JAX arrays, called nowhere in the repo; the "
-                                     "port packs bits on the host (utils.bits_to_bytes)",
-    "utils.jnp_bytes_to_bits": "a helper on JAX arrays, called nowhere in the repo; the port "
-                               "unpacks bits on the host (utils.bytes_to_bits)",
-    "utils.bits.jnp_bits_to_bytes_array": "as utils.jnp_bits_to_bytes_array",
-    "utils.bits.jnp_bytes_to_bits": "as utils.jnp_bytes_to_bits",
-    "tools.scaling_bench.stream_main": "the port's run(argv) takes --stream in its place",
-    "tools.scaling_bench.ofdm_stream_main": "the port's run(argv) takes --ofdm-stream in its "
-                                            "place",
-}
+# Reference names the port does not carry, each with its reason: none is left.
+NAME_GAPS: dict[str, str] = {}
 # Reference modules without a twin of the same name, each with its reason.
 MODULE_GAPS = {
     "fec.ldpc_pallas": "its two Pallas kernels are csrc/ldpc_bp.cu and csrc/ldpc_bp_v1.cu, "
@@ -168,7 +158,6 @@ MODULE_GAPS = {
     "utils.platform": "selects a JAX backend; utils.device.resolve_device and --device take "
                       "its place",
     "tools.pallas_bench": "twinned by tools/ldpc_bench.py (K1, K2 and the plain decoder)",
-    "tools.bench_profile": "bench.py's per-stage profile, left for the benchmark port",
 }
 
 
@@ -295,3 +284,38 @@ def test_root_tool_twins_run_without_jax(tool, argv, expect):
                           text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert expect in proc.stdout, proc.stdout
+
+
+def test_bits_helpers_match_the_reference():
+    """``utils.jnp_bits_to_bytes_array`` and ``utils.jnp_bytes_to_bits`` on
+    tensors against the reference's on JAX arrays: the same random bits and
+    bytes, batched, MSB first, equal exactly."""
+    import numpy as np
+
+    from ria_tpu.utils import bits as J
+    from ria_tpu_torch.utils import jnp_bits_to_bytes_array, jnp_bytes_to_bits
+
+    rng = np.random.default_rng(3)
+    bits = rng.integers(0, 2, (3, 5, 64)).astype(np.uint8)
+    data = rng.integers(0, 256, (4, 17)).astype(np.uint8)
+    got = jnp_bits_to_bytes_array(torch.as_tensor(bits))
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(J.jnp_bits_to_bytes_array(bits)))
+    got = jnp_bytes_to_bits(torch.as_tensor(data))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(J.jnp_bytes_to_bits(data)))
+    np.testing.assert_array_equal(jnp_bits_to_bytes_array(got).numpy(), data)
+
+
+@pytest.mark.parametrize("name,flag", [("stream_main", "--stream"),
+                                       ("ofdm_stream_main", "--ofdm-stream")])
+def test_scaling_bench_entry_functions_forward_to_run(name, flag, monkeypatch):
+    """The reference's ``stream_main``/``ofdm_stream_main`` exist in the
+    port's ``scaling_bench`` and call its ``run`` with their mode's flag,
+    then any options given."""
+    from ria_tpu_torch.tools import scaling_bench
+
+    seen = []
+    monkeypatch.setattr(scaling_bench, "run", lambda argv=None: seen.append(argv) or ["rows"])
+    assert getattr(scaling_bench, name)() == ["rows"]
+    assert getattr(scaling_bench, name)(["--device", "cpu"]) == ["rows"]
+    assert seen == [[flag], [flag, "--device", "cpu"]]

@@ -84,7 +84,7 @@ def test_temporary_is_named_by_process_and_thread(stand_in_nvcc, monkeypatch):
 
 
 def test_launch_counters_lose_no_increment(monkeypatch):
-    """Eight threads count 20,000 launches each through both wrappers, with
+    """Eight threads count 20,000 launches each through every wrapper, with
     the interpreter switching threads every microsecond: no increment is
     lost.  (CPython 3.12 switches threads only at calls and backward jumps,
     so here the unguarded ``+=`` held too; the lock keeps the count for an
@@ -92,6 +92,7 @@ def test_launch_counters_lose_no_increment(monkeypatch):
     monkeypatch.setattr(ldpc_kernel, "launch", lambda *args: ((), 1))
     monkeypatch.setattr(ldpc_kernel, "LAUNCHES", 0)
     monkeypatch.setattr(ldpc_kernel, "LAUNCHES_V1", 0)
+    monkeypatch.setattr(ldpc_kernel, "LAUNCHES_BF16", 0)
     calls, threads_n = 20000, 8
     barrier = threading.Barrier(threads_n)
 
@@ -100,6 +101,7 @@ def test_launch_counters_lose_no_increment(monkeypatch):
         for _ in range(calls):
             ldpc_kernel.bp_decode(None, None, None, 0, 0)
             ldpc_kernel.bp_decode_v1(None, None, None, 0, 0)
+            ldpc_kernel.bp_decode(None, None, None, 0, 0, "bf16")
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -114,3 +116,4 @@ def test_launch_counters_lose_no_increment(monkeypatch):
     assert not any(t.is_alive() for t in threads)
     assert ldpc_kernel.LAUNCHES == calls * threads_n
     assert ldpc_kernel.LAUNCHES_V1 == calls * threads_n
+    assert ldpc_kernel.LAUNCHES_BF16 == calls * threads_n

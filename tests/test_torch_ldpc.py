@@ -104,7 +104,7 @@ def _assert_matches(port, ref, llr_atol):
 def test_plain_decoder_matches_jax_vf(case):
     rate, _ = CASES[case]
     llr, fac, vf, _ = _reference(case)
-    port = make_decoder_vf(rate, ITERS, "cpu")(torch.as_tensor(llr), torch.as_tensor(fac))
+    port = make_decoder_vf(rate, ITERS, device="cpu")(torch.as_tensor(llr), torch.as_tensor(fac))
     _assert_matches(port, vf, 1e-3)
     assert port.success.any()
 
@@ -113,7 +113,7 @@ def test_plain_decoder_matches_jax_vf(case):
 def test_plain_decoder_matches_pallas_interpreter(case):
     rate, _ = CASES[case]
     llr, fac, _, pal = _reference(case)
-    port = make_decoder_vf(rate, ITERS, "cpu")(torch.as_tensor(llr), torch.as_tensor(fac))
+    port = make_decoder_vf(rate, ITERS, device="cpu")(torch.as_tensor(llr), torch.as_tensor(fac))
     _assert_matches(port, pal, 0.5)
 
 
@@ -126,7 +126,7 @@ def test_noisy_cases_exercise_both_row_classes():
 def test_decode_batch_on_cpu_is_the_plain_decoder():
     llr, fac, _, _ = _reference("noisy_s3")
     got = decode_batch(torch.as_tensor(llr), torch.as_tensor(fac), "R1_2", ITERS, "cpu")
-    want = make_decoder_vf("R1_2", ITERS, "cpu")(torch.as_tensor(llr), torch.as_tensor(fac))
+    want = make_decoder_vf("R1_2", ITERS, device="cpu")(torch.as_tensor(llr), torch.as_tensor(fac))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
 
@@ -137,8 +137,8 @@ def test_make_decoder_fixed_factor_and_zero_rows():
     per-row one at that factor."""
     llr = _awgn_llrs("R1_4", 2, 6, 0.0)
     llr[0] = 0.0
-    got = make_decoder("R1_4", ITERS, 0.75, "cpu")(torch.as_tensor(llr))
-    want = make_decoder_vf("R1_4", ITERS, "cpu")(torch.as_tensor(llr), torch.full((6,), 0.75))
+    got = make_decoder("R1_4", ITERS, 0.75, device="cpu")(torch.as_tensor(llr))
+    want = make_decoder_vf("R1_4", ITERS, device="cpu")(torch.as_tensor(llr), torch.full((6,), 0.75))
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert bool(got.success[0]) and int(got.iterations[0]) == 1
@@ -149,7 +149,7 @@ def test_make_decoder_fixed_factor_and_zero_rows():
 @pytest.mark.parametrize("rate", ["R3_4", "R5_6"])
 def test_edgeless_variables_keep_channel_llr(rate):
     llr = _awgn_llrs(rate, 4, 4, 3.0)
-    res = make_decoder_vf(rate, ITERS, "cpu")(torch.as_tensor(llr), torch.full((4,), 0.75))
+    res = make_decoder_vf(rate, ITERS, device="cpu")(torch.as_tensor(llr), torch.full((4,), 0.75))
     code = get_code(rate)
     free = ~code.gather.any(axis=0)
     assert np.array_equal(res.llr_total.numpy()[:, free], llr[:, free])

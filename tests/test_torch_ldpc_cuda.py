@@ -9,7 +9,9 @@ Without a card every test skips.  Tolerances: ``success`` on every row, and
 ``llr_total`` on converged rows within 1e-3 (K2 sums a variable's messages
 in another order than its plain version's matmuls, and than K1).  K1 and the
 plain decoder sum in the same order, so ``test_k1_equals_plain_bit_for_bit``
-holds them equal on every row, the rows that never converge included.  The
+holds them equal on every row, the rows that never converge included.  K1's
+bf16-operand build equals the plain decoder's ``precision="bf16"`` the same
+way (``test_k1_bf16_equals_plain_bf16_bit_for_bit``).  The
 plain decoders themselves are held against the
 JAX reference by tests/test_torch_ldpc.py and tests/test_torch_ldpc_v1.py,
 the serving layer by tests/test_torch_ldpc_serving.py.
@@ -367,3 +369,49 @@ def test_kernel_us_reads_the_profiler_and_falls_back_to_events(cuda_device, caps
     assert how.startswith("CUDA events") and us < queued < 4 * us
     with capsys.disabled():
         print(f"\nkernel_us at R1_4 B=64: profiler {us:.2f} us, queued events {queued:.2f} us")
+
+
+def _mixed_llrs(rate, B, seed):
+    """bench.py's LDPC batch: amplitude-4 LLRs, half the rows at noise 2.6."""
+    rng = np.random.default_rng(seed)
+    info = rng.integers(0, 2, (B, get_code(rate).k))
+    llr = (1.0 - 2.0 * encode_np(info, rate).astype(np.float32)) * 4.0
+    noise = rng.normal(0, 1.0, llr.shape).astype(np.float32)
+    noise[B // 2 :] = rng.normal(0, 2.6, (B - B // 2, llr.shape[1])).astype(np.float32)
+    return llr + noise
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,B,kind", [(r, b, "near") for r in CODE_PARAMS for b in (8, 256)]
+                         + [("R1_4", 512, "mixed")])
+def test_k1_bf16_equals_plain_bf16_bit_for_bit(rate, B, kind, cuda_device):
+    """K1's bf16-operand build, counted in ``LAUNCHES_BF16`` alone, against
+    the plain decoder's ``precision="bf16"`` on the card and on the CPU:
+    every output of every row equal, converged or not; and not the float32
+    build's posteriors."""
+    iters = 50 if kind == "mixed" else 80
+    llr = _mixed_llrs(rate, B, 5) if kind == "mixed" else _llrs(rate, B, 3.0, seed=13)
+    fac = np.resize(LADDER, B)
+    x, f = torch.as_tensor(llr, device=cuda_device), torch.as_tensor(fac, device=cuda_device)
+    dec = ldpc_decoder(rate, iters, cuda_device, "bf16")
+    before = (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_BF16)
+    got = dec(x, f)
+    torch.cuda.synchronize()
+    assert (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_BF16) == (before[0], before[1] + 1)
+    plain = dec.plain(x, f)
+    cpu = ldpc_decoder(rate, iters, "cpu", "bf16").plain(x.cpu(), f.cpu())
+    for a, b, c in zip(got, plain, cpu):
+        assert torch.equal(a.cpu(), b.cpu()) and torch.equal(b.cpu(), c)
+    f32 = ldpc_decoder(rate, iters, cuda_device)(x, f)
+    assert not torch.equal(f32.llr_total, got.llr_total)
+
+
+@pytest.mark.cuda
+def test_make_decoder_bf16_launches_the_bf16_build(cuda_device):
+    x = torch.as_tensor(_llrs("R1_2", 16, 2.0, seed=3), device=cuda_device)
+    before = ldpc_kernel.LAUNCHES_BF16
+    got = T.make_decoder("R1_2", 30, 0.75, "bf16", device=cuda_device)(x)
+    assert ldpc_kernel.LAUNCHES_BF16 == before + 1
+    want = T.make_decoder_vf("R1_2", 30, "bf16", device="cpu")(x.cpu(), torch.full((16,), 0.75))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)

@@ -12,7 +12,10 @@ sums each variable's messages in the same ascending edge order).  Last, a
 step-by-step emulation of K1's schedule (the next check update run before
 the vote, the sentinel edges with no mask, the per-codeword freeze) in
 float32 equals the plain decoder bit for bit, every row, on the noisy cases
-of tests/test_torch_ldpc.py.
+of tests/test_torch_ldpc.py; and with the bf16 build's rounding
+(``-DRIA_BF16_OPERANDS``: the gathered channel LLRs and posteriors and the
+summed check messages rounded to bfloat16, the parity from the float32
+posteriors) it equals the plain decoder's ``precision="bf16"`` bit for bit.
 """
 
 import numpy as np
@@ -20,7 +23,7 @@ import pytest
 import torch
 
 from ria_tpu_torch.fec import ldpc_kernel as K
-from ria_tpu_torch.fec.ldpc import ldpc_decoder
+from ria_tpu_torch.fec.ldpc import _bf16, ldpc_decoder
 from ria_tpu_torch.fec.ldpc_matrix import CODE_PARAMS, LLR_CLAMP, get_code
 from test_torch_ldpc import CASES, ITERS, LADDER, _awgn_llrs
 
@@ -181,13 +184,14 @@ def test_csc_sum_equals_plain_posterior(rate):
     assert not torch.equal(c2v, torch.zeros_like(c2v))
 
 
-def _emulate_k1(rate, llr, fac, max_iters):
+def _emulate_k1(rate, llr, fac, max_iters, operand=lambda x: x):
     """K1's schedule, step by step, in float32 over a batch, as the kernel
     runs it: slots with no edge gather the sentinel variable (+inf) with no
     mask; the prologue's check update; then per iteration the variable
     pass, the gather with v2c and parity, the speculative next check update
     (skipped on the last), and the vote, after which a converged row
-    freezes."""
+    freezes.  ``operand`` is the kernel's ``operand()``: the identity, or
+    the bf16 build's rounding."""
     code, lay = _layout(rate)
     B, n = llr.shape
     row = torch.as_tensor(lay.row.T.astype(np.int64))  # [m, D], n on no-edge slots
@@ -211,16 +215,16 @@ def _emulate_k1(rate, llr, fac, max_iters):
         return torch.cat([post, torch.full((B, 1), torch.inf)], dim=1)[:, row]
 
     post = llr.clone()
-    state = check_update(gather(post))
+    state = check_update(operand(gather(post)))
     live = torch.ones(B, dtype=torch.bool)
     ok = torch.zeros(B, dtype=torch.bool)
     iters = torch.zeros(B, dtype=torch.int32)
     for it in range(max_iters):
         c2v = messages(state)
-        new_post = _csc_posterior(lay, n, llr, c2v)
+        new_post = _csc_posterior(lay, n, llr, operand(c2v))
         post = torch.where(live[:, None], new_post, post)
         g = gather(post)
-        v2c = torch.clamp(g - c2v, -LLR_CLAMP, LLR_CLAMP)
+        v2c = torch.clamp(operand(g) - c2v, -LLR_CLAMP, LLR_CLAMP)
         parity = ((g < 0).sum(dim=-1) % 2).any(dim=-1)
         iters = torch.where(live, it + 1, iters)
         if it + 1 < max_iters:
@@ -249,3 +253,18 @@ def test_k1_schedule_emulation_matches_plain(case):
     # Bit for bit on every row, the rows that never converge included.
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", ["noisy_s3", "noisy_s23", "mixed_r14"])
+def test_k1_bf16_schedule_emulation_matches_plain_bf16(case):
+    """The bf16 build's schedule against ``LDPCDecoder.plain`` with
+    ``precision="bf16"``: every output of every row equal."""
+    rate, make = CASES[case]
+    llr = torch.as_tensor(make())
+    fac = torch.as_tensor(np.resize(LADDER, llr.shape[0]))
+    got = _emulate_k1(rate, llr, fac, ITERS, operand=_bf16)
+    want = ldpc_decoder(rate, ITERS, "cpu", "bf16").plain(llr, fac)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    f32 = ldpc_decoder(rate, ITERS, "cpu").plain(llr, fac)
+    assert not torch.equal(want.llr_total, f32.llr_total)
