@@ -5,23 +5,24 @@ Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py
 
-It builds the LDPC kernels K1 (``ria_tpu_torch/csrc/ldpc_bp.cu``, in its
-float32 build and its bf16-operand build) and K2
-(``ria_tpu_torch/csrc/ldpc_bp_v1.cu``) from the checkout's sources and runs
-these phases, each printing its lines and raising on failure:
+It builds the LDPC kernels K1 (``ria_tpu_torch/csrc/ldpc_bp.cu``) and K2
+(``ria_tpu_torch/csrc/ldpc_bp_v1.cu``), each in its float32 build and its
+bf16-operand build, from the checkout's sources and runs these phases, each
+printing its lines and raising on failure:
 
 1. device: the card's name and power limit, as nvidia-smi gives them;
-2. build: nvcc for sm_90a, the three libraries at once, with each build
-   time and ptxas resource lines; K1's (both builds) and K2's registers,
-   spill and shared bytes as the CUDA runtime reports them, and how many
+2. build: nvcc for sm_90a, the four libraries at once, with each build
+   time and ptxas resource lines; K1's and K2's (both builds of each)
+   registers, spill and shared bytes as the CUDA runtime reports them, and how many
    codewords the card holds at once (it fails on any spill, or if fewer
    than the A/B point's 512 fit); K1's at R1/2 and R3/4 too, the rates the
    OFDM chains decode (no spill);
-3. kernels vs plain: K1 against the plain PyTorch decoder, K1's bf16 build
-   against the plain decoder's ``precision="bf16"`` (every output of every
-   row equal), and K2 against its plain version (``plain_v1``) and against
-   K1, on the card, for every rate at B = 8 and 256 and for R1/4 at B = 512
-   (mixed difficulty);
+3. kernels vs plain: each kernel build against its plain PyTorch version
+   (K1 and ``plain``, K2 and ``plain_v1``, each in float32 and in
+   ``precision="bf16"``): every output of every row equal; and K2 against
+   K1 in each precision (they group their sums otherwise: at most 1% of
+   the mixed batch's rows may part); on the card, for every rate at B = 8
+   and 256 and for R1/4 at B = 512 (mixed difficulty);
 4. main path: the MC-DPSK RX chain at the bench.py chain-1 geometry (64
    channels, window 207,328, R1/4, 4 codewords, 10 dB AWGN) from the port's
    own TX, checked against the transmitted bits and against the same chain
@@ -140,7 +141,11 @@ these phases, each printing its lines and raising on failure:
 5. A/B entry point: ``ria_tpu_torch.tools.ldpc_bench`` at its default size
    (R1/4, B = 512, -1 dB), K1, K2 and the plain decoder reporting the same
    success set and bit accuracy, with K2's launch count from that run; then
-   K1 and K2 against their plain versions on those LLRs;
+   K1 and K2 against their plain versions on those LLRs, bit for bit; then
+   ``ldpc_bench --precision bf16`` (the TPU kernels' arithmetic, plain
+   float32), with the counts zeroed: the bf16 builds launched and the
+   float32 ones not, K1 bf16 and K2 bf16 each equal bit for bit to its plain
+   bf16 version on those LLRs, and to each other on all but 1% of rows;
 6. serving layer on the card: ``LDPCCodec`` round trips for every rate,
    ``decode_with_retries`` in at most two K1 launches and
    ``decode_candidates``, each equal to the CPU port's result;
@@ -150,8 +155,8 @@ these phases, each printing its lines and raising on failure:
    device time per launch from torch.profiler, its bound (the larger of
    bytes over 3.35 TB/s and operations over 67 TFLOP/s, the H100 SXM's
    published peaks) and the share of the bound it reaches, and the K1/K2
-   device-time ratio; the serial floor (K1 and K2 at B = 1 on an A/B row
-   that runs all 50 iterations); K1's host microseconds per call; for each
+   device-time ratio; the serial floor (K1 and K2, each in both builds, at
+   B = 1 on an A/B row that runs all 50 iterations in all four); K1's host microseconds per call; for each
    OFDM chain its ms per call and samples/s, and K1's device time on the
    chain's own 256 codewords with its bound and share; for every chain and
    for its sync and sync-to-soft-bits stages, the ms per call, the device
@@ -168,9 +173,9 @@ these phases, each printing its lines and raising on failure:
    share, host-device synchronisations and copies; K1 at the sessions' batch
    sizes (device time, bound and share) and one trace of an S1 tick that
    decodes a frame; K1 at phase 4f's, 4g's and 4h's batch sizes (device
-   time, bound, share); K1's bf16 build against its plain version and
-   against the float32 build at B = 256 and the A/B point (CUDA events,
-   device time, bound and share);
+   time, bound, share); K1's and K2's bf16 builds each against its plain
+   version and against its float32 build at B = 256 and the A/B point (CUDA
+   events, device time, bound and share);
 8. a JSON line of the sessions, one of phase 4f's runs, one of phase 4g's
    cases, one of phase 4h's tools, one of the waveform
    classes' ``rx_frame`` times, a JSON line of the kernels, then the last line
@@ -196,7 +201,14 @@ import torch
 RATES_SIGMA = {"R1_4": 2.4, "R1_2": 1.8, "R2_3": 1.5, "R3_4": 1.4, "R5_6": 1.4}
 FACTORS = np.array([0.9375, 0.875, 0.75, 0.625, 0.5], np.float32)
 LLR_ATOL = 1e-3
-MIXED_MAX_FLIPS = 0.01  # share of rows of the B = 512 mixed batch
+# K1 against K2 in their bf16 builds: a last-bit difference of their sums
+# can round a gathered posterior to the other bfloat16, which moves a
+# message by one bfloat16 ulp (0.03125 at |x| in [4, 8)).
+BF16_LLR_ATOL = 0.0625
+# Share of a B = 512 batch's rows on which K1 and K2 may part: they group
+# their float32 sums otherwise, and near the BP threshold a last-bit
+# difference grows.  Each kernel equals its own plain version on every row.
+MIXED_MAX_FLIPS = 0.01
 BENCH_ARGS = ["--rate", "R1_4", "--batch", "512", "--snr-db", "-1", "--reps", "20"]
 # Published peaks of one H100 SXM (NVIDIA's data sheet, at its 700 W limit).
 HBM_BYTES_PER_S = 3.35e12
@@ -207,13 +219,36 @@ F32_OPS_PER_S = 67e12
 # exclusive pick, x factor, the sign applied); variable sum 1.  Plus 1 per
 # variable and iteration (channel LLR + the sum).
 OPS_PER_EDGE = 14
-# The bf16 build adds two roundings per edge and iteration (the gathered
-# posterior and the summed c2v), each a conversion there and one back.
+# A bf16 build (K1's or K2's) adds two roundings per edge and iteration
+# (the gathered posterior and the summed c2v), each a conversion there and
+# one back.
 BF16_OPS_PER_EDGE = OPS_PER_EDGE + 4
+# The launch counts of ``ria_tpu_torch.fec.ldpc_kernel``, one per build.
+COUNTS = ("LAUNCHES", "LAUNCHES_BF16", "LAUNCHES_V1", "LAUNCHES_V1_BF16")
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def zero_counts() -> None:
+    """Every build's launch count set to 0."""
+    from ria_tpu_torch.fec import ldpc_kernel
+
+    for name in COUNTS:
+        setattr(ldpc_kernel, name, 0)
+
+
+def k2_launches() -> int:
+    """K2's launches, either build, since the counts were last zeroed."""
+    from ria_tpu_torch.fec import ldpc_kernel
+
+    return ldpc_kernel.LAUNCHES_V1 + ldpc_kernel.LAUNCHES_V1_BF16
+
+
+def same_bits(a, b) -> bool:
+    """Every output of every row of two decode results equal."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def llr_batch(rate: str, B: int, rng: np.random.Generator, mixed: bool = False):
@@ -243,17 +278,17 @@ def bpsk_llrs(rate: str, seed: int, B: int, sigma: float) -> np.ndarray:
     return (2 * y / sigma**2).astype(np.float32)
 
 
-def compare(ref, got):
+def compare(ref, got, llr_atol: float = LLR_ATOL):
     """(rows that disagree, max |llr| error on rows both converged).  A row
     disagrees when success differs, or, converged in both, when its info
-    bits or iteration count differ or its posterior is off by > LLR_ATOL."""
+    bits or iteration count differ or its posterior is off by > llr_atol."""
     s_ref, s_got = ref.success.cpu(), got.success.cpu()
     both = s_ref & s_got
     err = (ref.llr_total.cpu() - got.llr_total.cpu()).abs().amax(dim=1)
     bad = s_ref != s_got
     bad |= both & (ref.iterations.cpu() != got.iterations.cpu())
     bad |= both & (ref.info_bits.cpu() != got.info_bits.cpu()).any(dim=1)
-    bad |= both & (err > LLR_ATOL)
+    bad |= both & (err > llr_atol)
     max_err = float(err[both].max()) if bool(both.any()) else 0.0
     return int(bad.sum()), max_err
 
@@ -275,10 +310,10 @@ def bound_us(dec, kernel: str, B: int, iterations: int) -> tuple[float, str]:
     need."""
     n, k = dec.n, dec.k
     io = B * (4 * n + 4) + B * (4 * n + k + 1 + 4)
-    t = dec.k2 if kernel == "K2" else dec.k1
+    t = dec.k2 if kernel.startswith("K2") else dec.k1
     tables = sum(x.numel() * x.element_size() for x in (t.row, t.epos, t.jobs))
     edges = int(dec.row_mask.sum())
-    per_edge = BF16_OPS_PER_EDGE if kernel == "K1 bf16" else OPS_PER_EDGE
+    per_edge = BF16_OPS_PER_EDGE if kernel.endswith("bf16") else OPS_PER_EDGE
     ops = iterations * (per_edge * edges + n)
     t_bytes = (io + tables) / HBM_BYTES_PER_S * 1e6
     t_ops = ops / F32_OPS_PER_S * 1e6
@@ -1181,7 +1216,7 @@ COVERAGE_MIN = 0.95  # share of the chain call's device time the stage spans mus
 def profile_phase(card: str, dev: torch.device) -> dict:
     """Phase 4i, the stage profile and the bf16 path.  Returns {"rows": the
     four rows' ms, "split": the span split, "launches": the bf16 path's
-    (K1 f32, K1 bf16, K2) launches, "k1_bf16_err", "seconds"}."""
+    (K1 f32, K1 bf16, K2 of either build) launches, "k1_bf16_err", "seconds"}."""
     from ria_tpu_torch.fec import ldpc_kernel
     from ria_tpu_torch.fec.ldpc import ldpc_decoder, make_decoder
     from ria_tpu_torch.fec.ldpc_matrix import RECOMMENDED_ITERS
@@ -1216,10 +1251,10 @@ def profile_phase(card: str, dev: torch.device) -> dict:
     iters = RECOMMENDED_ITERS[BP.RATE]
     decode16 = make_decoder(BP.RATE, iters, 0.75, "bf16", device=dev)
     torch.cuda.synchronize()
-    ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_BF16 = ldpc_kernel.LAUNCHES_V1 = 0
+    zero_counts()
     got = decode16(soft)
     torch.cuda.synchronize()
-    launches = (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_BF16, ldpc_kernel.LAUNCHES_V1)
+    launches = (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_BF16, k2_launches())
     dec16 = ldpc_decoder(BP.RATE, iters, dev, "bf16")
     want = dec16.plain(soft, torch.full((soft.shape[0],), 0.75, device=dev))
     same = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -1338,7 +1373,9 @@ def main() -> int:
     for name, res in (("K1", ldpc_kernel.k1_resources(rate_dec.n, rate_dec.k1.slots)),
                       ("K1 bf16", ldpc_kernel.k1_resources(rate_dec.n, rate_dec.k1.slots,
                                                            "bf16")),
-                      ("K2", ldpc_kernel.k2_resources(rate_dec.n, rate_dec.k2.slots))):
+                      ("K2", ldpc_kernel.k2_resources(rate_dec.n, rate_dec.k2.slots)),
+                      ("K2 bf16", ldpc_kernel.k2_resources(rate_dec.n, rate_dec.k2.slots,
+                                                           "bf16"))):
         resident = res["blocks_per_sm"] * sms
         log(f"[2 build] {name} at {RATE}: {res['registers']} registers and "
             f"{res['local_bytes']} bytes of local (spill) memory per thread, "
@@ -1359,60 +1396,62 @@ def main() -> int:
 
     # -- 3. kernels vs plain, on the card -------------------------------------
     rng = np.random.default_rng(1234)
-    max_err = {"K1": 0.0, "K1 bf16": 0.0, "K2": 0.0}
+    max_err = {"K1": 0.0, "K1 bf16": 0.0, "K2": 0.0, "K2 bf16": 0.0}
+    plain_name = {"K1": "plain", "K1 bf16": "plain bf16", "K2": "plain_v1",
+                  "K2 bf16": "plain_v1 bf16"}
     cases = [(rate, B, False) for rate in CODE_PARAMS for B in (8, 256)] + [(RATE, 512, True)]
     for rate, B, mixed in cases:
         llr, fac = llr_batch(rate, B, rng, mixed)
         dec = ldpc_decoder(rate, None, dev)
-        x, f = torch.as_tensor(llr, device=dev), torch.as_tensor(fac, device=dev)
-        k1 = dec(x, f)
-        k2 = make_cuda_decoder_v1(rate, device=dev)(x, f)
-        plain, plain_v1 = dec.plain(x, f), dec.plain_v1(x, f)
-        torch.cuda.synchronize()
-        allowed = int(MIXED_MAX_FLIPS * B) if mixed else 0
-        tag = f"{rate} B={B}{' mixed' if mixed else ''}"
-        for name, ref_name, ref, got in (("K1", "plain", plain, k1),
-                                         ("K2", "plain_v1", plain_v1, k2),
-                                         ("K2", "K1", k1, k2)):
-            n_bad, err = compare(ref, got)
-            if ref_name.startswith("plain"):
-                max_err[name] = max(max_err[name], err)
-            log(f"[3 kernels] {tag}: {name} vs {ref_name}: success {int(got.success.sum())}/{B} "
-                f"({ref_name} {int(ref.success.sum())}), mean iterations "
-                f"{got.iterations.float().mean():.2f}, rows differing {n_bad} "
-                f"(allowed {allowed}), max |llr err| {err:.3g}")
-            if n_bad > allowed:
-                raise AssertionError(f"{name} disagrees with {ref_name} on {n_bad} rows ({tag})")
-        # The bf16 build against the plain decoder's bf16 mode: bit for bit.
         dec16 = ldpc_decoder(rate, None, dev, "bf16")
-        k1_16, plain16 = dec16(x, f), dec16.plain(x, f)
+        x, f = torch.as_tensor(llr, device=dev), torch.as_tensor(fac, device=dev)
+        got = {"K1": dec(x, f), "K1 bf16": dec16(x, f),
+               "K2": make_cuda_decoder_v1(rate, device=dev)(x, f),
+               "K2 bf16": make_cuda_decoder_v1(rate, device=dev, precision="bf16")(x, f)}
+        plain = {"K1": dec.plain(x, f), "K1 bf16": dec16.plain(x, f),
+                 "K2": dec.plain_v1(x, f), "K2 bf16": dec16.plain_v1(x, f)}
         torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(k1_16, plain16))
-        err16 = float((k1_16.llr_total - plain16.llr_total).abs().max())
-        max_err["K1 bf16"] = max(max_err["K1 bf16"], err16)
-        log(f"[3 kernels] {tag}: K1 bf16 vs plain bf16: success {int(k1_16.success.sum())}/{B} "
-            f"(f32 K1 {int(k1.success.sum())}), mean iterations "
-            f"{k1_16.iterations.float().mean():.2f}, every output equal: {same}, max |llr err| "
-            f"{err16:.3g}, max |bf16 - f32 posterior| "
-            f"{float((k1_16.llr_total - k1.llr_total).abs().max()):.3g}")
-        if not same:
-            raise AssertionError(f"K1's bf16 build differs from the plain bf16 decoder ({tag})")
+        tag = f"{rate} B={B}{' mixed' if mixed else ''}"
+        # Each kernel build against its plain version: every output of every row.
+        for name, res in got.items():
+            ref = plain[name]
+            same = same_bits(res, ref)
+            err = float((res.llr_total - ref.llr_total).abs().max())
+            max_err[name] = max(max_err[name], err)
+            log(f"[3 kernels] {tag}: {name} vs {plain_name[name]}: success "
+                f"{int(res.success.sum())}/{B}, mean iterations "
+                f"{res.iterations.float().mean():.2f}, every output equal: {same}, "
+                f"max |llr err| {err:.3g}")
+            if not same:
+                raise AssertionError(f"{name} differs from {plain_name[name]} ({tag})")
+        # K2 against K1 in each precision, within the tolerances of ``compare``.
+        allowed = int(MIXED_MAX_FLIPS * B) if mixed else 0
+        for a, b, atol in (("K2", "K1", LLR_ATOL), ("K2 bf16", "K1 bf16", BF16_LLR_ATOL)):
+            n_bad, err = compare(got[b], got[a], atol)
+            log(f"[3 kernels] {tag}: {a} vs {b}: rows differing {n_bad} (allowed {allowed}), "
+                f"max |llr err| {err:.3g}")
+            if n_bad > allowed:
+                raise AssertionError(f"{a} disagrees with {b} on {n_bad} rows ({tag})")
+        log(f"[3 kernels] {tag}: max |bf16 - f32 posterior| K1 "
+            f"{float((got['K1 bf16'].llr_total - got['K1'].llr_total).abs().max()):.3g}, K2 "
+            f"{float((got['K2 bf16'].llr_total - got['K2'].llr_total).abs().max()):.3g}")
 
     # -- 4. main path ---------------------------------------------------------
     cfg, ncw, batch, window = geometry(production=True)
     audio, info = _make_batch(cfg, ncw, batch, window, seed=0, production=True, device=dev)
     rx = make_rx_pipeline(cfg, RATE, ncw, window, device=dev)
     torch.cuda.synchronize()
-    ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
+    zero_counts()
     out = rx(audio)
     torch.cuda.synchronize()
-    launches, launches_v1_main = ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_V1
+    launches = ldpc_kernel.LAUNCHES
+    launches_v1_main = (ldpc_kernel.LAUNCHES_V1, ldpc_kernel.LAUNCHES_V1_BF16)
     det = out.detected.cpu().numpy()
     ok = out.cw_success.cpu().numpy()
     bits = out.info_bits.cpu().numpy()
     log(f"[4 main path] B={batch} window={window}: detected {int(det.sum())}/{batch}, "
-        f"cw_decode_rate {ok.mean():.4f}, K1 launches {launches}, K2 launches "
-        f"{launches_v1_main}")
+        f"cw_decode_rate {ok.mean():.4f}, K1 launches {launches}, K2 launches f32 "
+        f"{launches_v1_main[0]}, bf16 {launches_v1_main[1]}")
     if out.info_bits.shape != (batch, ncw, info.shape[-1]):
         raise AssertionError(f"info_bits shape {tuple(out.info_bits.shape)}")
     if not torch.isfinite(out.snr_db).all() or not torch.isfinite(out.cfo_hz).all():
@@ -1425,6 +1464,8 @@ def main() -> int:
         raise AssertionError("decoded info bits differ from the transmitted bits")
     if launches < 1:
         raise AssertionError("the main path did not launch K1")
+    if any(launches_v1_main):
+        raise AssertionError(f"the main path launched K2 (f32, bf16) {launches_v1_main}")
     # The same chain on the CPU (the plain decoder), on the same audio.
     cpu = make_rx_pipeline(cfg, RATE, ncw, window, device="cpu")(audio.cpu())
     for name in ("detected", "start", "cw_success", "info_bits", "iterations"):
@@ -1444,10 +1485,10 @@ def main() -> int:
         o_audio, o_info = _make_ofdm_batch(geom, seed=0, device=dev)
         orx = make_ofdm_rx_pipeline(geom.cfg, geom.rate, geom.window, geom.ci_bits, device=dev)
         torch.cuda.synchronize()
-        ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
+        zero_counts()
         o_out = orx(o_audio)
         torch.cuda.synchronize()
-        o_launches = (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_V1)
+        o_launches = (ldpc_kernel.LAUNCHES, k2_launches())
         det = o_out.detected.cpu().numpy()
         ok = o_out.cw_success.cpu().numpy()
         tag = (f"[4b OFDM] config #{config} {geom.cfg.modulation} {geom.rate} at "
@@ -1487,10 +1528,10 @@ def main() -> int:
         x = tuple(t.to(dev) for t in batch_w.inputs)
         path = W.make_path(name)
         torch.cuda.synchronize()
-        ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
+        zero_counts()
         w_out = path(*x)
         torch.cuda.synchronize()
-        w_launches = (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_V1)
+        w_launches = (ldpc_kernel.LAUNCHES, k2_launches())
         w_cpu = path(*batch_w.inputs)
         geom_w = path.geom
         tag = (f"[4c paths] {name} B={W.BATCH} window={geom_w.window} at {geom_w.snr_db:g} dB")
@@ -1577,7 +1618,7 @@ def main() -> int:
 
     # -- 5. A/B entry point ---------------------------------------------------
     log(f"[5 A/B] python -m ria_tpu_torch.tools.ldpc_bench {' '.join(BENCH_ARGS)}")
-    ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
+    zero_counts()
     rows = ldpc_bench.run(BENCH_ARGS)
     torch.cuda.synchronize()
     launches_v1, launches_ab = ldpc_kernel.LAUNCHES_V1, ldpc_kernel.LAUNCHES
@@ -1595,22 +1636,59 @@ def main() -> int:
         raise AssertionError(f"ldpc_bench: ok={rows['k1'].ok}, bitacc={rows['k1'].bitacc}")
     if launches_v1 < 1 or launches_ab < 1:
         raise AssertionError("the A/B entry point did not launch both kernels")
-    # Each kernel against its plain version on the entry point's own LLRs.
+    # Each kernel against its plain version on the entry point's own LLRs:
+    # every output of every row.
     ab_llr = torch.as_tensor(ldpc_bench.make_llrs("R1_4", 512, -1.0)[1], device=dev)
     ab_fac = torch.full((512,), MIN_SUM_FACTOR, device=dev)
+    ab_dec, ab_dec16 = ldpc_decoder("R1_4", None, dev), ldpc_decoder("R1_4", None, dev, "bf16")
+
+    def hold_ab(bench_rows, held):
+        for name, kernel, ref in held:
+            res = bench_rows[name].result
+            same = same_bits(res, ref)
+            err = float((res.llr_total - ref.llr_total).abs().max())
+            max_err[kernel] = max(max_err[kernel], err)
+            log(f"[5 A/B] {name} ({kernel}) vs {plain_name[kernel]}: every output equal: {same}, "
+                f"max |llr err| {err:.3g}")
+            if not same:
+                raise AssertionError(f"ldpc_bench: {kernel} differs from {plain_name[kernel]}")
+
+    hold_ab(rows, (("k1", "K1", rows["plain"].result),
+                   ("k2", "K2", ab_dec.plain_v1(ab_llr, ab_fac))))
+    # The same entry point with the TPU kernels' arithmetic: both kernels in
+    # their bf16 builds, the plain decoder float32, as tools/pallas_bench.py.
+    bench16 = [*BENCH_ARGS, "--precision", "bf16"]
+    log(f"[5 A/B] python -m ria_tpu_torch.tools.ldpc_bench {' '.join(bench16)}")
+    zero_counts()
+    rows16 = ldpc_bench.run(bench16)
+    torch.cuda.synchronize()
+    launches_ab16 = {name: getattr(ldpc_kernel, name) for name in COUNTS}
+    log(f"[5 A/B] launches in the bf16 run: K1 {launches_ab16['LAUNCHES']}, K1 bf16 "
+        f"{launches_ab16['LAUNCHES_BF16']}, K2 {launches_ab16['LAUNCHES_V1']}, K2 bf16 "
+        f"{launches_ab16['LAUNCHES_V1_BF16']}")
+    if list(rows16) != ["k1", "k2", "plain"]:
+        raise AssertionError(f"ldpc_bench --precision bf16 ran {list(rows16)}")
+    if (launches_ab16["LAUNCHES"] or launches_ab16["LAUNCHES_V1"]
+            or launches_ab16["LAUNCHES_BF16"] < 1 or launches_ab16["LAUNCHES_V1_BF16"] < 1):
+        raise AssertionError("ldpc_bench --precision bf16 did not launch the two bf16 builds "
+                             "alone")
+    for name in ("k1", "k2"):
+        if not (rows16[name].ok > 0.5 and rows16[name].bitacc > 0.99):
+            raise AssertionError(f"ldpc_bench --precision bf16: {name} ok={rows16[name].ok}, "
+                                 f"bitacc={rows16[name].bitacc}")
+    hold_ab(rows16, (("k1", "K1 bf16", ab_dec16.plain(ab_llr, ab_fac)),
+                     ("k2", "K2 bf16", ab_dec16.plain_v1(ab_llr, ab_fac))))
     allowed = int(MIXED_MAX_FLIPS * 512)
-    for name, ref_name, ref in (
-            ("k1", "plain", rows["plain"].result),
-            ("k2", "plain_v1", ldpc_decoder("R1_4", None, dev).plain_v1(ab_llr, ab_fac))):
-        n_bad, err = compare(ref, rows[name].result)
-        max_err[name.upper()] = max(max_err[name.upper()], err)
-        log(f"[5 A/B] {name} vs {ref_name}: rows differing {n_bad} (allowed {allowed}), "
-            f"max |llr err| {err:.3g}")
-        if n_bad > allowed:
-            raise AssertionError(f"ldpc_bench: {name} disagrees with {ref_name} on {n_bad} rows")
+    n_bad, err = compare(rows16["k1"].result, rows16["k2"].result, BF16_LLR_ATOL)
+    s16 = rows16["k1"].result.success.cpu()
+    log(f"[5 A/B] bf16: k2 vs k1 rows differing {n_bad} (allowed {allowed}), max |llr err| "
+        f"{err:.3g}; success differs from plain f32 on "
+        f"{int((s16 != rows16['plain'].result.success.cpu()).sum())} rows")
+    if n_bad > allowed:
+        raise AssertionError(f"ldpc_bench --precision bf16: k2 disagrees with k1 on {n_bad} rows")
 
     # -- 6. serving layer on the card -----------------------------------------
-    ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
+    zero_counts()
     data = bytes(range(40))
     for rate in CODE_PARAMS:
         codec = L.LDPCCodec(rate, device=dev)
@@ -1641,7 +1719,7 @@ def main() -> int:
         f"{[len(c) for c in got]} (CPU port {[len(c) for c in want]})")
     if not same or not any(want):
         raise AssertionError("decode_candidates on the card differs from the CPU port")
-    if ldpc_kernel.LAUNCHES_V1:
+    if k2_launches():
         raise AssertionError("the serving layer launched K2")
 
     # -- 7. timing ------------------------------------------------------------
@@ -1765,34 +1843,45 @@ def main() -> int:
                         f"{bounds[name][0] / us[name]:.2%} of it reached"
                         for name in us) + f" ({card})")
 
-    # K1's bf16 build at the main path's 256 codewords and the A/B point, in
-    # turns with its plain version (plain bf16, K1 bf16, K1, K1 bf16, plain
-    # bf16): the float32 build beside it on the same card.
+    # Each bf16 build at the main path's 256 codewords and the A/B point, in
+    # turns with its plain version and its float32 build (plain bf16, bf16,
+    # f32, bf16, plain bf16).
     dec16 = ldpc_decoder(RATE, None, dev, "bf16")
-    bf16_times = {}
-    for label, x in (("B=256 main path", soft), ("B=512 A/B -1 dB", ab_llr)):
-        f = torch.full((x.shape[0],), MIN_SUM_FACTOR, device=dev)
-        fns = {"K1 bf16": lambda: dec16(x, f), "plain bf16": lambda: dec16.plain(x, f),
-               "K1": lambda: dec(x, f)}
-        for fn in fns.values():
-            for _ in range(3):
-                fn()
-        p1 = cuda_ms(fns["plain bf16"], 5)[0]
-        b1 = cuda_ms(fns["K1 bf16"], 20)[0]
-        k1 = cuda_ms(fns["K1"], 20)[0]
-        b2 = cuda_ms(fns["K1 bf16"], 20)[0]
-        p2 = cuda_ms(fns["plain bf16"], 5)[0]
-        us16, how = kernel_us(fns["K1 bf16"], "ldpc_bp_kernel")
-        us32 = kernel_us(fns["K1"], "ldpc_bp_kernel")[0]
-        it16 = dec16(x, f).iterations
-        bnd = bound_us(dec16, "K1 bf16", x.shape[0], int(it16.sum()))
-        bf16_times[label] = ((b1 + b2) / 2, (p1 + p2) / 2, us16, bnd, us32)
-        log(f"[7 timing] LDPC {RATE} {label}, K1 bf16: mean iterations "
-            f"{it16.float().mean():.2f} (f32 {dec(x, f).iterations.float().mean():.2f}); K1 bf16 "
-            f"{b1:.4f} / {b2:.4f} ms, K1 {k1:.4f} ms, plain bf16 {p1:.4f} / {p2:.4f} ms; device "
-            f"time per launch K1 bf16 {us16:.2f} us ({how}), K1 {us32:.2f} us, ratio "
-            f"{us16 / us32:.4f}; bound {bnd[0]:.3f} us ({bnd[1]}), {bnd[0] / us16:.2%} of it "
-            f"reached ({card})")
+    k2_dec16 = make_cuda_decoder_v1(RATE, device=dev, precision="bf16")
+
+    def time_bf16(name: str, kernel, plain, f32, symbol: str) -> dict:
+        """{point: (ms, plain ms, device us, bound, f32 device us)} of the
+        bf16 build ``name``; ``kernel``, ``plain`` and ``f32`` decode (x, f)."""
+        out = {}
+        for label, x in (("B=256 main path", soft), ("B=512 A/B -1 dB", ab_llr)):
+            f = torch.full((x.shape[0],), MIN_SUM_FACTOR, device=dev)
+            fns = {"bf16": lambda: kernel(x, f), "plain": lambda: plain(x, f),
+                   "f32": lambda: f32(x, f)}
+            for fn in fns.values():
+                for _ in range(3):
+                    fn()
+            p1 = cuda_ms(fns["plain"], 5)[0]
+            b1 = cuda_ms(fns["bf16"], 20)[0]
+            k32 = cuda_ms(fns["f32"], 20)[0]
+            b2 = cuda_ms(fns["bf16"], 20)[0]
+            p2 = cuda_ms(fns["plain"], 5)[0]
+            us16, how = kernel_us(fns["bf16"], symbol)
+            us32 = kernel_us(fns["f32"], symbol)[0]
+            it16 = kernel(x, f).iterations
+            bnd = bound_us(dec16, name, x.shape[0], int(it16.sum()))
+            out[label] = ((b1 + b2) / 2, (p1 + p2) / 2, us16, bnd, us32)
+            f32_name = name.split()[0]
+            log(f"[7 timing] LDPC {RATE} {label}, {name}: mean iterations "
+                f"{it16.float().mean():.2f} (f32 {f32(x, f).iterations.float().mean():.2f}); "
+                f"{name} {b1:.4f} / {b2:.4f} ms, {f32_name} {k32:.4f} ms, {plain_name[name]} "
+                f"{p1:.4f} / {p2:.4f} ms; device time per launch {name} {us16:.2f} us ({how}), "
+                f"{f32_name} {us32:.2f} us, ratio {us16 / us32:.4f}; bound {bnd[0]:.3f} us "
+                f"({bnd[1]}), {bnd[0] / us16:.2%} of it reached ({card})")
+        return out
+
+    bf16_times = {"K1 bf16": time_bf16("K1 bf16", dec16, dec16.plain, dec, "ldpc_bp_kernel"),
+                  "K2 bf16": time_bf16("K2 bf16", k2_dec16, dec16.plain_v1, k2_dec,
+                                       "ldpc_bp_v1_kernel")}
 
     # K1 on each OFDM chain's own 256 codewords, at factor 0.9375.
     for path, (geom, orx, o_audio, _) in ofdm.items():
@@ -1848,19 +1937,36 @@ def main() -> int:
     k1_scale = k1_at_sizes(scale["calls"], "phase-4g", card)
     k1_tools = k1_at_sizes(tools["calls"], "phase-4h", card)
 
-    # The serial floor: one codeword alone for all 50 iterations.
-    ab_k1 = dec(ab_llr, ab_fac)
-    row = int(torch.nonzero((ab_k1.iterations == 50) & ~ab_k1.success)[0])
+    # The serial floor: one codeword alone for all 50 iterations, on a row
+    # that no build decodes, each bf16 build in turns with its float32 one
+    # (K1, K1 bf16, K1 bf16, K1; then K2 likewise).
+    ab_runs = (dec(ab_llr, ab_fac), dec16(ab_llr, ab_fac), k2_dec(ab_llr, ab_fac),
+               k2_dec16(ab_llr, ab_fac))
+    stuck = torch.stack([(r.iterations == 50) & ~r.success for r in ab_runs]).all(dim=0)
+    row = int(torch.nonzero(stuck)[0])
     x1, f1 = ab_llr[row : row + 1], ab_fac[:1]
-    floor = {"K1": kernel_us(lambda: dec(x1, f1), "ldpc_bp_kernel"),
-             "K2": kernel_us(lambda: k2_dec(x1, f1), "ldpc_bp_v1_kernel")}
-    log("[7 timing] serial floor, B=1 on A/B row {} (50 iterations): ".format(row) + ", ".join(
-        f"{name} {t:.2f} us per launch, {t / 50:.4f} us per iteration ({how})"
-        for name, (t, how) in floor.items()) + f" ({card})")
+    floor_fns = {"K1": (lambda: dec(x1, f1), "ldpc_bp_kernel"),
+                 "K1 bf16": (lambda: dec16(x1, f1), "ldpc_bp_kernel"),
+                 "K2": (lambda: k2_dec(x1, f1), "ldpc_bp_v1_kernel"),
+                 "K2 bf16": (lambda: k2_dec16(x1, f1), "ldpc_bp_v1_kernel")}
+    floor_reads = {name: [] for name in floor_fns}
+    for order in (("K1", "K1 bf16", "K1 bf16", "K1"), ("K2", "K2 bf16", "K2 bf16", "K2")):
+        for name in order:
+            floor_reads[name].append(kernel_us(*floor_fns[name]))
+    floor = {name: (sum(t for t, _ in reads) / len(reads), reads[0][1])
+             for name, reads in floor_reads.items()}
+    log("[7 timing] serial floor, B=1 on A/B row {} (50 iterations, mean of two reads in "
+        "turns): ".format(row) + ", ".join(
+            f"{name} {t:.2f} us per launch ({' / '.join(f'{r:.2f}' for r, _ in floor_reads[name])}), "
+            f"{t / 50:.4f} us per iteration ({how})" for name, (t, how) in floor.items())
+        + f"; bf16 / f32: K1 {floor['K1 bf16'][0] / floor['K1'][0]:.4f}, K2 "
+        f"{floor['K2 bf16'][0] / floor['K2'][0]:.4f} ({card})")
 
     # -- 8. result ------------------------------------------------------------
     # Times at the main path's 256 codewords.  ``launches`` counts the path
-    # that runs each kernel (K1: the RX call; K2: the A/B entry point),
+    # that runs each kernel (K1: the RX call; K2: the A/B entry point; the
+    # bf16 builds: the bf16 path of phase 4i and ``ldpc_bench --precision
+    # bf16``),
     # ``launches_per_call`` the launches per RX call of the main path, and
     # ``launches_per_call_by_path`` those of each chain's and waveform path's
     # call.  No PyTorch call computes min-sum BP, so there is no library time.
@@ -1870,7 +1976,7 @@ def main() -> int:
             ("K1", "ria_tpu_torch/csrc/ldpc_bp.cu", "ria_tpu/fec/ldpc_pallas.py:39",
              launches, launches),
             ("K2", "ria_tpu_torch/csrc/ldpc_bp_v1.cu", "ria_tpu/fec/ldpc_pallas.py:218",
-             launches_v1, launches_v1_main))):
+             launches_v1, launches_v1_main[0]))):
         ms, plain_ms, dev_us, (b_us, b_by) = main_times[name]
         by_path = {"mc_dpsk": per_call}
         by_path.update({path: run[3][i] for path, run in ofdm.items()})
@@ -1889,20 +1995,49 @@ def main() -> int:
             "max_abs_err": max_err[name], "ms": ms,
             "plain_ms": plain_ms, "device_us": dev_us, "bound_us": b_us,
             "bound_ms": b_us / 1e3, "bound_by": b_by, "library_ms": None})
+
+    def bf16_entry(name: str, symbol: str, source: str, replaces: str, launched: int,
+                   by_path: dict) -> dict:
+        """The ``kernels`` entry of the bf16 build ``name``: its launches on
+        the path that runs it, its times at the main path's 256 codewords and
+        at the A/B point beside them."""
+        ms, plain_ms, dev_us, (b_us, b_by), _ = bf16_times[name]["B=256 main path"]
+        ab16 = bf16_times[name]["B=512 A/B -1 dB"]
+        return {
+            "name": symbol, "route": "cuda", "source": source,
+            "nvcc_defines": ["-DRIA_BF16_OPERANDS"], "replaces": replaces,
+            "launches": launched, "launches_per_call": launched,
+            "launches_per_call_by_path": by_path, "max_abs_err": max_err[name], "ms": ms,
+            "plain_ms": plain_ms, "device_us": dev_us, "bound_us": b_us, "bound_ms": b_us / 1e3,
+            "bound_by": b_by, "library_ms": None,
+            "ab_point": {"ms": ab16[0], "plain_ms": ab16[1], "device_us": ab16[2],
+                         "bound_us": ab16[3][0], "bound_by": ab16[3][1],
+                         "f32_device_us": ab16[4]}}
+
     # K1's bf16 build: launched by the bf16 path of phase 4i (the decoder
-    # entry point with precision="bf16"); times at the main path's 256
-    # codewords, and at the A/B point beside them.
-    ms, plain_ms, dev_us, (b_us, b_by), _ = bf16_times["B=256 main path"]
-    ab16 = bf16_times["B=512 A/B -1 dB"]
-    kernels.append({
-        "name": "ldpc_bp_bf16", "route": "cuda", "source": "ria_tpu_torch/csrc/ldpc_bp.cu",
-        "nvcc_defines": ["-DRIA_BF16_OPERANDS"], "replaces": "ria_tpu/fec/ldpc_pallas.py:39",
-        "launches": profile["launches"][1], "launches_per_call": profile["launches"][1],
-        "launches_per_call_by_path": {"bf16 path": profile["launches"][1]},
-        "max_abs_err": max_err["K1 bf16"], "ms": ms, "plain_ms": plain_ms, "device_us": dev_us,
-        "bound_us": b_us, "bound_ms": b_us / 1e3, "bound_by": b_by, "library_ms": None,
-        "ab_point": {"ms": ab16[0], "plain_ms": ab16[1], "device_us": ab16[2],
-                     "bound_us": ab16[3][0], "bound_by": ab16[3][1], "f32_device_us": ab16[4]}})
+    # entry point with precision="bf16") and by ``ldpc_bench --precision
+    # bf16``, per call of its decoder there (the calls the tool counted).
+    kernels.append(bf16_entry(
+        "K1 bf16", "ldpc_bp_bf16", "ria_tpu_torch/csrc/ldpc_bp.cu",
+        "ria_tpu/fec/ldpc_pallas.py:39", profile["launches"][1],
+        {"bf16 path": profile["launches"][1],
+         "ldpc_bench --precision bf16": launches_ab16["LAUNCHES_BF16"] / rows16["k1"].calls}))
+    # K2's bf16 build: launched by ``ldpc_bench --precision bf16`` (phase 5)
+    # alone.  On every other path K2's count above is of either build and
+    # every phase requires it to be 0, so it is this build's count too; the
+    # main path's is this build's own.
+    by_path = dict(kernels[1]["launches_per_call_by_path"])
+    by_path["mc_dpsk"] = launches_v1_main[1]
+    by_path["ldpc_bench --precision bf16"] = (launches_ab16["LAUNCHES_V1_BF16"]
+                                              / rows16["k2"].calls)
+    if any(n for path, n in by_path.items() if path != "ldpc_bench --precision bf16"):
+        raise AssertionError(f"K2's bf16 build launched off the A/B entry point: {by_path}")
+    kernels.append(bf16_entry(
+        "K2 bf16", "ldpc_bp_v1_bf16", "ria_tpu_torch/csrc/ldpc_bp_v1.cu",
+        "ria_tpu/fec/ldpc_pallas.py:218", launches_ab16["LAUNCHES_V1_BF16"], by_path))
+    kernels[-1]["launches_per_call"] = by_path["ldpc_bench --precision bf16"]
+    for kernel, name in zip(kernels, ("K1", "K2", "K1 bf16", "K2 bf16")):
+        kernel["serial_floor_us_per_iteration"] = floor[name][0] / 50
     # K1's device time and bound on each waveform path's 64 codewords.
     kernels[0]["device_us_by_path"] = {path: t[0] for path, t in path_k1.items()}
     kernels[0]["bound_us_by_path"] = {path: t[1][0] for path, t in path_k1.items()}

@@ -17,7 +17,8 @@ candidate probes and ``LDPCCodec``).  Three decoders compute the same thing:
 - :meth:`LDPCDecoder.plain_v1` is the plain PyTorch version of kernel K2
   (``csrc/ldpc_bp_v1.cu``, reached through :mod:`ria_tpu_torch.fec.ldpc_cuda`):
   the same BP in the per-degree-slot form of the TPU kernel
-  ``make_pallas_decoder_v1``.  Only the tests and ``chip_smoke.py`` call it.
+  ``make_pallas_decoder_v1``, summed in K2's order, so the two agree bit for
+  bit.  Only the tests, the A/B tool and ``chip_smoke.py`` call it.
 
 :class:`LDPCDecoder` launches K1 for a CUDA tensor and uses the plain decoder
 only for a CPU tensor; there is no fallback from one to the other.  Every
@@ -31,8 +32,10 @@ iteration with a per-codeword freeze, positive LLR => bit 0.
 ``precision`` (the reference's argument): ``"f32"``, the default, keeps
 everything float32; ``"bf16"`` rounds the operands of the reference's
 gather and scatter matmuls to bfloat16 (round to nearest even) and sums in
-float32, which is also what the TPU kernel ``make_pallas_decoder`` computes.
-K1 has a build of each (``ldpc_kernel.bp_decode``'s ``precision``).
+float32, which is also what the TPU kernel ``make_pallas_decoder`` computes;
+:meth:`LDPCDecoder.plain_v1` then also rounds the factor, as the TPU kernel
+``make_pallas_decoder_v1`` does.  K1 and K2 each have a build of each
+(``ldpc_kernel.bp_decode``'s and ``bp_decode_v1``'s ``precision``).
 """
 
 from __future__ import annotations
@@ -87,8 +90,10 @@ class LDPCDecoder(nn.Module):
     ``k1_row``/``k1_epos``/``k1_jobs`` (:func:`ldpc_kernel.k1_layout`,
     checked once into ``self.k1``) and K2's ``k2_row``/``k2_epos``/``k2_jobs``
     (:func:`ldpc_kernel.k2_layout`, checked once into ``self.k2``).
-    ``precision`` picks the plain decoder's rounding and K1's build; K2 and
-    :meth:`plain_v1` are float32 only.
+    ``precision`` picks the rounding of :meth:`plain` and :meth:`plain_v1`
+    and the build of K1 and K2.  ``v1_edges`` ([n, sum of the slots' widest
+    group]) lists each variable's messages in K2's order for
+    :meth:`_slot_sum`, the group widths in ``v1_groups``.
     """
 
     def __init__(self, code: LDPCCode, max_iters: int | None = None,
@@ -103,6 +108,8 @@ class LDPCDecoder(nn.Module):
         self.register_buffer("row_mask", torch.as_tensor(code.row_mask, device=dev))
         self.register_buffer("var_edges", torch.as_tensor(
             _var_edges(code.row_idx, code.row_mask, code.n), device=dev))
+        v1_edges, self.v1_groups = _slot_edges(code.row_idx, code.row_mask, code.n)
+        self.register_buffer("v1_edges", torch.as_tensor(v1_edges, device=dev))
         layout = ldpc_kernel.k1_layout(code.row_idx, code.row_mask, code.n)
         self.register_buffer("k1_row", torch.as_tensor(layout.row, device=dev))
         self.register_buffer("k1_epos", torch.as_tensor(layout.epos, device=dev))
@@ -163,8 +170,9 @@ class LDPCDecoder(nn.Module):
         variable sum.  The sums, ``edge - c2v`` (the rounded gather less the
         float32 message), the clamp and the factor stay float32.  The parity
         check reads the float32 posteriors' signs, as the reference's bf16
-        mode does; the TPU kernel reads the rounded gather's, which differs
-        only for |LLR| below bfloat16's smallest subnormal (2**-133)."""
+        mode does; the TPU kernels (and :meth:`plain_v1`) read the rounded
+        gather's, which differs only for |LLR| below bfloat16's smallest
+        subnormal (2**-133)."""
         B = llrs.shape[0]
         m, D, g = self.m, self.D, self.gather
         bf16 = self.precision == "bf16"
@@ -216,25 +224,60 @@ class LDPCDecoder(nn.Module):
         c2v = sign_prod * sgn * excl * factors[:, None, None]
         return torch.where(mask, c2v, 0.0)
 
+    def _slot_sum(self, c2v: torch.Tensor) -> torch.Tensor:
+        """[B, n]: K2's sum of each variable's messages, ``((0 + s_0) + s_1)
+        + ... + s_{D-1}``, where ``s_d`` sums from 0.0, in ascending check
+        order, the messages of slot-major ``c2v [B, D, m]`` that reach the
+        variable through edge slot d (the order of
+        ``ldpc_kernel.slot_tables``, in which K2 stores and sums them).  An
+        index gather, term by term, so that every add rounds as K2's does;
+        the padding adds +0.0 to a sum that started at +0.0, which changes
+        no bit."""
+        B = c2v.shape[0]
+        flat = torch.cat([c2v.reshape(B, -1), c2v.new_zeros(B, 1)], dim=1)
+        msgs = flat[:, self.v1_edges]  # [B, n, sum of widths]
+        acc = torch.zeros_like(msgs[:, :, 0])
+        j = 0
+        for width in self.v1_groups:
+            s = torch.zeros_like(acc)
+            for _ in range(width):
+                s = s + msgs[:, :, j]
+                j += 1
+            acc = acc + s
+        return acc
+
     def plain_v1(self, llrs: torch.Tensor, factors: torch.Tensor) -> DecodeResult:
         """The plain PyTorch version of K2: the BP of :meth:`plain` in the
-        TPU kernel ``make_pallas_decoder_v1``'s own form, in f32.
+        TPU kernel ``make_pallas_decoder_v1``'s own form, bit-identical to
+        K2's build of the same precision.
 
         Messages are slot-major ``[B, D, m]``; the check update is the
         two-pass tie-count form (:meth:`_check_update_v1`); the posterior is
-        ``llr_in + sum_d scatter_d(c2v[:, d])`` with slot 0 first, each
-        ``scatter_d`` a product with slot d's one-hot ``[m, n]``.  Same loop,
-        freeze and early exit as :meth:`plain`.
+        ``llr_in`` plus the slot groups summed in K2's order
+        (:meth:`_slot_sum`).  Same loop, freeze and early exit as
+        :meth:`plain`.
+
+        With ``"bf16"`` it rounds to bfloat16 where the TPU kernel does: the
+        factor (``ldpc_pallas.py:264-265``), the channel LLRs at the first
+        gather, the posteriors at every gather and each check message
+        entering the scatter.  The clamp, ``g - c2v`` (the rounded gather
+        less the float32 message), the sums and the tie-count update stay
+        float32, and the parity reads the rounded gather's signs, as the TPU
+        kernel's does (``:338``).  :meth:`plain`'s bf16 mode follows the
+        reference's ``make_decoder_vf`` instead: it keeps the factor float32
+        and reads its parity from the float32 posteriors, which differs from
+        the rounded gather's sign only for |LLR| below 2**-133.  With the
+        ladder's factors, all exact in bfloat16, the two differ only there
+        and in their order of summation.
         """
         B = llrs.shape[0]
-        m, D, n = self.m, self.D, self.n
         idx, mask = self.row_idx.T, self.row_mask.T            # [D, m]
-        slots = self.gather.view(m, D, n)                      # slot d: [:, d] is [m, n]
+        rnd = _bf16 if self.precision == "bf16" else (lambda x: x)
         llr_in = llrs.float()
-        factors = factors.float()
+        factors = rnd(factors.float())
 
         def gather(x):                                         # [B, n] -> [B, D, m]
-            return torch.where(mask, x[:, idx], 0.0)
+            return torch.where(mask, rnd(x)[:, idx], 0.0)
 
         v2c = gather(llr_in)
         llr_total = llr_in
@@ -243,10 +286,7 @@ class LDPCDecoder(nn.Module):
         it = 0
         while it < self.max_iters and not bool(done.all()):
             c2v = self._check_update_v1(v2c, mask, factors)
-            acc = c2v[:, 0] @ slots[:, 0]
-            for d in range(1, D):
-                acc = acc + c2v[:, d] @ slots[:, d]
-            llr_new = llr_in + acc
+            llr_new = llr_in + self._slot_sum(rnd(c2v))
             g = gather(llr_new)
             v2c_new = torch.clamp(g - c2v, -LLR_CLAMP, LLR_CLAMP)
             ok = torch.all((mask & (g < 0)).sum(dim=1) % 2 == 0, dim=-1)
@@ -270,6 +310,25 @@ def _var_edges(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> np.ndarray:
     for v in range(n):
         out[v, : deg[v]] = col_edge[col_ptr[v] : col_ptr[v + 1]]
     return out
+
+
+def _slot_edges(row_idx: np.ndarray, row_mask: np.ndarray,
+                n: int) -> tuple[np.ndarray, tuple[int, ...]]:
+    """(``[n, W]`` int64, widths): for each slot d, each variable's slot-major
+    edges ``d * m + check`` in ascending check order (``slot_tables``),
+    padded to the slot's widest group with ``m * D`` (a message held at 0);
+    the slots' blocks side by side, ``widths[d]`` columns each."""
+    m, D = np.asarray(row_idx).shape
+    slot_ptr, slot_chk = ldpc_kernel.slot_tables(row_idx, row_mask, n)
+    size = np.diff(slot_ptr, axis=1)                       # [D, n]
+    widths = tuple(int(w) for w in size.max(axis=1))
+    out = np.full((n, sum(widths)), m * D, np.int64)
+    col = 0
+    for d, w in enumerate(widths):
+        for v in np.flatnonzero(size[d]):
+            out[v, col : col + size[d, v]] = d * m + slot_chk[slot_ptr[d, v] : slot_ptr[d, v + 1]]
+        col += w
+    return out, widths
 
 
 @functools.lru_cache(maxsize=None)

@@ -6,7 +6,9 @@
   TPU kernel's own rounding of its matmul operands to bfloat16
   (``precision="bf16"``);
 - K2 (``csrc/ldpc_bp_v1.cu``, :func:`bp_decode_v1`) replaces
-  ``ria_tpu/fec/ldpc_pallas.py::make_pallas_decoder_v1``.
+  ``ria_tpu/fec/ldpc_pallas.py::make_pallas_decoder_v1``, in the same two
+  builds: float32 and, with ``-DRIA_BF16_OPERANDS``, that TPU kernel's own
+  rounding of its operands and its factor to bfloat16.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, on first use, under ``build/ria_tpu_torch/``
@@ -38,12 +40,14 @@ import torch
 
 # Kernel launches since start-up (or since a caller last reset them).  Counted
 # only where each kernel is launched, so a run can show that it went through
-# K1's float32 build (LAUNCHES), its bf16-operand build (LAUNCHES_BF16) or K2
-# (LAUNCHES_V1).  Stations decode from threads of their own
-# (``sim/continuous.py``), so each count moves under ``_COUNT_LOCK``.
+# K1's float32 build (LAUNCHES), its bf16-operand build (LAUNCHES_BF16), K2's
+# float32 build (LAUNCHES_V1) or K2's bf16-operand build (LAUNCHES_V1_BF16).
+# Stations decode from threads of their own (``sim/continuous.py``), so each
+# count moves under ``_COUNT_LOCK``.
 LAUNCHES = 0
 LAUNCHES_BF16 = 0
 LAUNCHES_V1 = 0
+LAUNCHES_V1_BF16 = 0
 _COUNT_LOCK = threading.Lock()
 # One build at a time in a process, and one library load: two threads whose
 # first decode lands together must not start two compiles of one library.
@@ -67,9 +71,11 @@ LIBRARIES = {
     "ldpc_bp": (_SOURCE, ()),
     "ldpc_bp_bf16": (_SOURCE, ("-DRIA_BF16_OPERANDS",)),
     "ldpc_bp_v1": (_SOURCE_V1, ()),
+    "ldpc_bp_v1_bf16": (_SOURCE_V1, ("-DRIA_BF16_OPERANDS",)),
 }
-# K1's library for each precision.
+# Each kernel's library for each precision.
 K1_LIBRARY = {"f32": "ldpc_bp", "bf16": "ldpc_bp_bf16"}
+K2_LIBRARY = {"f32": "ldpc_bp_v1", "bf16": "ldpc_bp_v1_bf16"}
 
 
 def csc_tables(row_idx: np.ndarray, row_mask: np.ndarray,
@@ -436,7 +442,8 @@ def _compile_missing(sources: dict[str, tuple[Path, tuple[str, ...]]]) -> dict[s
 
 def build() -> dict[str, Build]:
     """Compile every library of :data:`LIBRARIES` that is missing, all at
-    once.  Returns ``{"ldpc_bp": ..., "ldpc_bp_bf16": ..., "ldpc_bp_v1": ...}``."""
+    once.  Returns ``{"ldpc_bp": ..., "ldpc_bp_bf16": ..., "ldpc_bp_v1": ...,
+    "ldpc_bp_v1_bf16": ...}``."""
     return compile_libraries(dict(LIBRARIES))
 
 
@@ -483,21 +490,22 @@ def resources(lib: ctypes.CDLL, name: str, n: int, slots: int) -> dict[str, int]
     return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
 
 
-def k1_library(precision: str) -> str:
-    """K1's library for ``precision`` (``"f32"`` or ``"bf16"``)."""
-    if precision not in K1_LIBRARY:
-        raise ValueError(f"K1 has no build for precision {precision!r}")
-    return K1_LIBRARY[precision]
+def _library_for(libraries: dict[str, str], precision: str) -> str:
+    """The library of ``libraries`` (:data:`K1_LIBRARY` or :data:`K2_LIBRARY`)
+    for ``precision``."""
+    if precision not in libraries:
+        raise ValueError(f"no kernel build for precision {precision!r}: {tuple(libraries)}")
+    return libraries[precision]
 
 
 def k1_resources(n: int, slots: int, precision: str = "f32") -> dict[str, int]:
     """:func:`resources` of K1's build of ``precision``."""
-    return resources(_library(k1_library(precision)), "ldpc_bp", n, slots)
+    return resources(_library(_library_for(K1_LIBRARY, precision)), "ldpc_bp", n, slots)
 
 
-def k2_resources(n: int, slots: int) -> dict[str, int]:
-    """:func:`resources` of the built K2."""
-    return resources(_library("ldpc_bp_v1"), "ldpc_bp_v1", n, slots)
+def k2_resources(n: int, slots: int, precision: str = "f32") -> dict[str, int]:
+    """:func:`resources` of K2's build of ``precision``."""
+    return resources(_library(_library_for(K2_LIBRARY, precision)), "ldpc_bp_v1", n, slots)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -523,7 +531,7 @@ def bp_decode(llrs: torch.Tensor, factors: torch.Tensor, tables: K1Tables,
     ``"bf16"``, bfloat16 operands (``LAUNCHES_BF16``).
     """
     global LAUNCHES, LAUNCHES_BF16
-    lib = k1_library(precision)
+    lib = _library_for(K1_LIBRARY, precision)
     name = "K1" if precision == "f32" else "K1 bf16"
     out, launched = launch(lambda: _entry(lib), name, llrs, factors, tables, k, max_iters)
     with _COUNT_LOCK:
@@ -535,17 +543,23 @@ def bp_decode(llrs: torch.Tensor, factors: torch.Tensor, tables: K1Tables,
 
 
 def bp_decode_v1(llrs: torch.Tensor, factors: torch.Tensor, tables: K2Tables,
-                 k: int, max_iters: int):
+                 k: int, max_iters: int, precision: str = "f32"):
     """Launch K2 on CUDA tensors: (info_bits, success, iterations, llr_total).
 
     Arguments and outputs as :func:`bp_decode`, with K2's tables
-    (:func:`k2_tables`).
+    (:func:`k2_tables`).  ``precision`` picks the build: ``"f32"`` (counted
+    in ``LAUNCHES_V1``) or ``"bf16"``, the TPU kernel's bfloat16 operands
+    and factor (``LAUNCHES_V1_BF16``).
     """
-    global LAUNCHES_V1
-    out, launched = launch(lambda: _entry("ldpc_bp_v1"), "K2", llrs, factors, tables, k,
-                           max_iters)
+    global LAUNCHES_V1, LAUNCHES_V1_BF16
+    lib = _library_for(K2_LIBRARY, precision)
+    name = "K2" if precision == "f32" else "K2 bf16"
+    out, launched = launch(lambda: _entry(lib), name, llrs, factors, tables, k, max_iters)
     with _COUNT_LOCK:
-        LAUNCHES_V1 += launched
+        if precision == "f32":
+            LAUNCHES_V1 += launched
+        else:
+            LAUNCHES_V1_BF16 += launched
     return out
 
 

@@ -5,6 +5,7 @@ against the XLA decoder.  Run from the root of a checkout:
 
     python -m ria_tpu_torch.tools.ldpc_bench [--rate R1_4] [--batch 512]
         [--snr-db -1] [--reps 20] [--device cuda] [--decoders k1,k2,plain]
+        [--precision f32|bf16]
 
 The LLRs follow the JAX tool's recipe (``np.random.default_rng(0)``: info
 bits, encoder, BPSK plus N(0, sigma) with ``sigma = 10**(-snr/20)``,
@@ -14,8 +15,13 @@ runs them:
 
 - ``k1``: kernel K1 (:func:`make_cuda_decoder`);
 - ``k2``: kernel K2 (:func:`make_cuda_decoder_v1`);
-- ``plain``: the plain PyTorch decoder (:func:`make_decoder_vf`; the port's
-  ``make_decoder`` would launch K1 on a CUDA tensor).
+- ``plain``: the plain PyTorch decoder (:func:`make_decoder_vf`, float32;
+  the port's ``make_decoder`` would launch K1 on a CUDA tensor).
+
+``--precision bf16`` runs ``k1`` and ``k2`` in their bf16 builds, the TPU
+kernels' own arithmetic, while ``plain`` stays float32: the JAX tool's trio
+(both Pallas kernels, bf16, against the float32 XLA decoder).  The default,
+``f32``, runs float32 kernels and prints what it always printed.
 
 The JAX tool's ``--tile`` is gone: both kernels run one codeword per thread
 block and exit per codeword, so there is no tile to choose and no padding.
@@ -50,6 +56,7 @@ class Row(NamedTuple):
     ms: float             # per batch
     cw_per_s: float
     mean_iters: float
+    calls: int            # of the decoder in all: checked, warm-up and timed
 
 
 def make_llrs(rate: str, B: int, snr_db: float) -> tuple[np.ndarray, np.ndarray]:
@@ -72,9 +79,11 @@ def _plain(rate: str, device: torch.device):
 
 
 DECODERS = {
-    "k1": lambda rate, dev: make_cuda_decoder(rate, device=dev),
-    "k2": lambda rate, dev: make_cuda_decoder_v1(rate, device=dev),
-    "plain": _plain,
+    "k1": lambda rate, dev, precision: make_cuda_decoder(rate, device=dev,
+                                                         precision=precision),
+    "k2": lambda rate, dev, precision: make_cuda_decoder_v1(rate, device=dev,
+                                                            precision=precision),
+    "plain": lambda rate, dev, precision: _plain(rate, dev),
 }
 
 
@@ -105,6 +114,8 @@ def run(argv=None) -> dict[str, Row]:
     ap.add_argument("--decoders", default=None,
                     help="comma list of k1, k2, plain (default: all three on CUDA, "
                          "plain on the CPU)")
+    ap.add_argument("--precision", choices=("f32", "bf16"), default="f32",
+                    help="build of k1 and k2 (plain stays f32)")
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
@@ -115,22 +126,31 @@ def run(argv=None) -> dict[str, Row]:
     else:
         names = ["plain"]
         print("device cpu: plain only (k1 and k2 are CUDA kernels with no CPU mode)")
+    if args.precision == "bf16":
+        print("precision bf16: it picks the builds of k1 and k2; plain stays f32")
     info, llr_np = make_llrs(args.rate, args.batch, args.snr_db)
     llr = torch.as_tensor(llr_np, device=dev)
     B = args.batch
 
     rows = {}
     for name in names:
-        dec = DECODERS[name](args.rate, dev)
-        r = dec(llr)
+        dec = DECODERS[name](args.rate, dev, args.precision)
+        calls = 0
+
+        def call():
+            nonlocal calls
+            calls += 1
+            return dec(llr)
+
+        r = call()
         ok = r.success.cpu().numpy()
         bits = r.info_bits.cpu().numpy()
         acc = float((bits[ok] == info[ok]).mean()) if ok.any() else 0.0
         for _ in range(3):
-            dec(llr)
-        ms = _ms_per_call(lambda: dec(llr), args.reps, dev)
+            call()
+        ms = _ms_per_call(call, args.reps, dev)
         rows[name] = Row(r, float(ok.mean()), acc, ms, B / ms * 1e3,
-                         float(r.iterations.float().mean()))
+                         float(r.iterations.float().mean()), calls)
         print(f"{name:8s} ok={ok.mean():.3f} bitacc={acc:.5f} "
               f"{B / ms * 1e3:,.0f} cw/s ({ms:.4f} ms/batch) "
               f"mean_iters={rows[name].mean_iters:.2f}", flush=True)

@@ -149,11 +149,11 @@ def check_clean_frame(rx: RxFrame, spec: CleanFrame) -> None:
 
 
 def counted(fn):
-    """(fn(), K1 launches, K2 launches) of one call, the counters set to 0
-    just before it and read just after."""
-    ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
+    """(fn(), K1 launches, K2 launches of either build) of one call, the
+    counters set to 0 just before it and read just after."""
+    ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = ldpc_kernel.LAUNCHES_V1_BF16 = 0
     out = fn()
-    return out, ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_V1
+    return out, ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_V1 + ldpc_kernel.LAUNCHES_V1_BF16
 
 
 def counted_k1(fn):

@@ -93,6 +93,7 @@ def test_launch_counters_lose_no_increment(monkeypatch):
     monkeypatch.setattr(ldpc_kernel, "LAUNCHES", 0)
     monkeypatch.setattr(ldpc_kernel, "LAUNCHES_V1", 0)
     monkeypatch.setattr(ldpc_kernel, "LAUNCHES_BF16", 0)
+    monkeypatch.setattr(ldpc_kernel, "LAUNCHES_V1_BF16", 0)
     calls, threads_n = 20000, 8
     barrier = threading.Barrier(threads_n)
 
@@ -102,6 +103,7 @@ def test_launch_counters_lose_no_increment(monkeypatch):
             ldpc_kernel.bp_decode(None, None, None, 0, 0)
             ldpc_kernel.bp_decode_v1(None, None, None, 0, 0)
             ldpc_kernel.bp_decode(None, None, None, 0, 0, "bf16")
+            ldpc_kernel.bp_decode_v1(None, None, None, 0, 0, "bf16")
 
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
@@ -117,3 +119,4 @@ def test_launch_counters_lose_no_increment(monkeypatch):
     assert ldpc_kernel.LAUNCHES == calls * threads_n
     assert ldpc_kernel.LAUNCHES_V1 == calls * threads_n
     assert ldpc_kernel.LAUNCHES_BF16 == calls * threads_n
+    assert ldpc_kernel.LAUNCHES_V1_BF16 == calls * threads_n

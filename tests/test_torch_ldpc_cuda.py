@@ -4,17 +4,19 @@ Imports no JAX, so it runs on a GPU host that has none:
 
     python -m pytest -q -m cuda tests/test_torch_ldpc_cuda.py
 
-Without a card every test skips.  Tolerances: ``success`` on every row, and
-``iterations`` and ``info_bits`` on converged rows, exactly equal;
-``llr_total`` on converged rows within 1e-3 (K2 sums a variable's messages
-in another order than its plain version's matmuls, and than K1).  K1 and the
-plain decoder sum in the same order, so ``test_k1_equals_plain_bit_for_bit``
-holds them equal on every row, the rows that never converge included.  K1's
-bf16-operand build equals the plain decoder's ``precision="bf16"`` the same
-way (``test_k1_bf16_equals_plain_bf16_bit_for_bit``).  The
-plain decoders themselves are held against the
-JAX reference by tests/test_torch_ldpc.py and tests/test_torch_ldpc_v1.py,
-the serving layer by tests/test_torch_ldpc_serving.py.
+Without a card every test skips.  Each kernel and its plain version sum in
+the same order, so they are held equal bit for bit on every row, the rows
+that never converge included: K1 and ``plain``
+(``test_k1_equals_plain_bit_for_bit``), K2 and ``plain_v1``
+(``test_k2_matches_plain_v1_and_k1``), and each bf16-operand build and its
+plain version's ``precision="bf16"``.  K1 against K2 (they group their
+sums differently) and the serving layer against the CPU port keep the
+tolerances: ``success`` on every row, and ``iterations`` and ``info_bits``
+on converged rows, exactly equal; ``llr_total`` on converged rows within
+1e-3.  The plain decoders themselves are held against the JAX reference by
+tests/test_torch_ldpc.py, tests/test_torch_ldpc_v1.py,
+tests/test_torch_ldpc_bf16.py and tests/test_torch_ldpc_v1_bf16.py, the
+serving layer by tests/test_torch_ldpc_serving.py.
 """
 
 import numpy as np
@@ -63,6 +65,14 @@ def _assert_matches(got, ref):
     assert torch.equal(got[2][ok], ref[2][ok])
     assert torch.equal(got[0][ok], ref[0][ok])
     assert torch.allclose(got[3][ok], ref[3][ok], rtol=0, atol=1e-3)
+
+
+def _assert_equal(*results):
+    """Every output of every row equal across ``results`` (on any device)."""
+    first = [t.cpu() for t in results[0]]
+    for other in results[1:]:
+        for a, b in zip(first, other):
+            assert torch.equal(a, b.cpu())
 
 
 @pytest.mark.cuda
@@ -140,6 +150,9 @@ def test_wrapper_rejects_bad_input(cuda_device):
 @pytest.mark.parametrize("rate", list(CODE_PARAMS))
 @pytest.mark.parametrize("sigma", [1.0, 2.0, 3.0])
 def test_k2_matches_plain_v1_and_k1(rate, sigma, cuda_device):
+    """K2 equals ``plain_v1`` on the card and on the CPU, every output of
+    every row (both sum in K2's order); against K1, which groups its sums
+    otherwise, the tolerances of ``_assert_matches``."""
     llr = _llrs(rate, 64, sigma, seed=7)
     x = torch.as_tensor(llr, device=cuda_device)
     f = torch.as_tensor(np.resize(LADDER, 64), device=cuda_device)
@@ -148,7 +161,7 @@ def test_k2_matches_plain_v1_and_k1(rate, sigma, cuda_device):
     torch.cuda.synchronize()
     assert ldpc_kernel.LAUNCHES_V1 == before + 1
     dec = ldpc_decoder(rate, 30, cuda_device)
-    _assert_matches(got, dec.plain_v1(x, f))
+    _assert_equal(got, dec.plain_v1(x, f), ldpc_decoder(rate, 30, "cpu").plain_v1(x.cpu(), f.cpu()))
     _assert_matches(got, make_cuda_decoder(rate, 30, device=cuda_device)(x, f))
 
 
@@ -164,7 +177,7 @@ def test_k2_zero_rows_zero_iterations_and_default_factor(cuda_device):
     got = make_cuda_decoder_v1("R3_4", 30, 0.625, device=cuda_device)(llr)
     want = ldpc_decoder("R3_4", 30, cuda_device).plain_v1(
         llr, torch.full((8,), 0.625, device=cuda_device))
-    _assert_matches(got, want)
+    _assert_equal(got, want)
 
 
 @pytest.mark.cuda
@@ -288,7 +301,7 @@ def _k2_vs_plain_v1(dec, x, f):
     got = ldpc_kernel.bp_decode_v1(x, f, dec.k2, dec.k, dec.max_iters)
     torch.cuda.synchronize()
     assert ldpc_kernel.LAUNCHES_V1 == before + 1
-    _assert_matches(got, dec.plain_v1(x, f))
+    _assert_equal(got, dec.plain_v1(x, f))
     return got
 
 
@@ -303,7 +316,7 @@ def test_k2_single_codeword_runs_every_iteration(cuda_device):
     row = int(torch.nonzero((plain.iterations == 50) & ~plain.success)[0])
     got = _k2_vs_plain_v1(dec, llr[row : row + 1], f[:1])
     assert int(got[2][0]) == 50 and not bool(got[1][0])
-    assert torch.allclose(got[3], plain.llr_total[row : row + 1], rtol=0, atol=1e-3)
+    assert torch.equal(got[3], plain.llr_total[row : row + 1])
 
 
 @pytest.mark.cuda
@@ -415,3 +428,85 @@ def test_make_decoder_bf16_launches_the_bf16_build(cuda_device):
     want = T.make_decoder_vf("R1_2", 30, "bf16", device="cpu")(x.cpu(), torch.full((16,), 0.75))
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,B,kind", [(r, b, "near") for r in CODE_PARAMS for b in (8, 256)]
+                         + [("R1_4", 512, "mixed"), ("R1_4", 256, "off_grid"),
+                            ("R1_2", 64, "off_grid")])
+def test_k2_bf16_equals_plain_v1_bf16_bit_for_bit(rate, B, kind, cuda_device):
+    """K2's bf16-operand build, counted in ``LAUNCHES_V1_BF16`` alone, against
+    ``plain_v1``'s ``precision="bf16"`` on the card and on the CPU: every
+    output of every row equal, converged or not; and not the float32
+    build's posteriors.  ``off_grid`` takes per-row factors 0.7, 0.8, 0.9
+    and 0.6, which the bf16 build rounds (the ladder's are exact)."""
+    iters = 50 if kind == "mixed" else 80
+    llr = _mixed_llrs(rate, B, 5) if kind == "mixed" else _llrs(rate, B, 3.0, seed=13)
+    grid = np.float32([0.7, 0.8, 0.9, 0.6]) if kind == "off_grid" else LADDER
+    fac = np.resize(grid, B)
+    x, f = torch.as_tensor(llr, device=cuda_device), torch.as_tensor(fac, device=cuda_device)
+    dec = ldpc_decoder(rate, iters, cuda_device, "bf16")
+    counts = ("LAUNCHES", "LAUNCHES_BF16", "LAUNCHES_V1", "LAUNCHES_V1_BF16")
+    before = [getattr(ldpc_kernel, c) for c in counts]
+    got = make_cuda_decoder_v1(rate, iters, device=cuda_device, precision="bf16")(x, f)
+    torch.cuda.synchronize()
+    assert [getattr(ldpc_kernel, c) - b for c, b in zip(counts, before)] == [0, 0, 0, 1]
+    cpu = ldpc_decoder(rate, iters, "cpu", "bf16").plain_v1(x.cpu(), f.cpu())
+    _assert_equal(got, dec.plain_v1(x, f), cpu)
+    f32 = make_cuda_decoder_v1(rate, iters, device=cuda_device)(x, f)
+    assert not torch.equal(f32.llr_total, got.llr_total)
+    if kind != "near":  # near the threshold no row of R2/3-R5/6 at B = 8 converges
+        assert got.success.any()
+
+
+@pytest.mark.cuda
+def test_k1_bf16_and_k2_bf16_under_the_reference_contract(cuda_device):
+    """tests/test_ldpc_pallas.py::test_fused_kernel_bit_equal_to_v1 on the
+    card: K1's and K2's bf16 builds on its LLRs (R1/2, ``default_rng(23)``,
+    16 rows, 2 dB, 30 iterations, factor 0.75): success, info bits and
+    iterations equal on every row, both row classes, posteriors within
+    1e-2 on converged rows."""
+    x = torch.as_tensor(_bpsk_llrs("R1_2", 23, 16, 10 ** (-2.0 / 20)), device=cuda_device)
+    k1 = make_cuda_decoder("R1_2", 30, device=cuda_device, precision="bf16")(x)
+    k2 = make_cuda_decoder_v1("R1_2", 30, device=cuda_device, precision="bf16")(x)
+    ok = k2.success
+    assert bool(ok.any()) and not bool(ok.all())
+    assert torch.equal(k1.success, ok)
+    assert torch.equal(k1.info_bits, k2.info_bits)
+    assert torch.equal(k1.iterations, k2.iterations)
+    assert torch.allclose(k1.llr_total[ok], k2.llr_total[ok], rtol=0, atol=1e-2)
+
+
+@pytest.mark.cuda
+def test_make_cuda_decoder_v1_bf16_launches_the_bf16_build(cuda_device):
+    x = torch.as_tensor(_llrs("R1_2", 16, 2.0, seed=3), device=cuda_device)
+    counts = ("LAUNCHES", "LAUNCHES_BF16", "LAUNCHES_V1", "LAUNCHES_V1_BF16")
+    before = [getattr(ldpc_kernel, c) for c in counts]
+    got = make_cuda_decoder_v1("R1_2", 30, 0.75, device=cuda_device, precision="bf16")(x)
+    torch.cuda.synchronize()
+    assert [getattr(ldpc_kernel, c) - b for c, b in zip(counts, before)] == [0, 0, 0, 1]
+    want = ldpc_decoder("R1_2", 30, "cpu", "bf16").plain_v1(x.cpu(), torch.full((16,), 0.75))
+    _assert_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_k2_bf16_resources_hold_the_ab_batch(cuda_device):
+    """The bf16 build: no spill, at most 32 registers, and every codeword
+    of the A/B point (512) resident at once."""
+    dec = ldpc_decoder("R1_4", 50, cuda_device)
+    res = ldpc_kernel.k2_resources(dec.n, dec.k2.slots, "bf16")
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert res["local_bytes"] == 0 and res["registers"] <= 32
+    assert res["blocks_per_sm"] * sms >= 512
+
+
+@pytest.mark.cuda
+def test_k2_bf16_library_is_built_from_its_source_and_defines(cuda_device):
+    """The bf16 build is K2's source with -DRIA_BF16_OPERANDS, in a library
+    of its own whose name carries both."""
+    builds = ldpc_kernel.build()
+    src, defines = ldpc_kernel.LIBRARIES["ldpc_bp_v1_bf16"]
+    assert src == ldpc_kernel._SOURCE_V1 and defines == ("-DRIA_BF16_OPERANDS",)
+    assert builds["ldpc_bp_v1_bf16"].path == ldpc_kernel.library_path(src, defines)
+    assert builds["ldpc_bp_v1_bf16"].path != builds["ldpc_bp_v1"].path
+    assert builds["ldpc_bp_v1_bf16"].path.exists()

@@ -14,8 +14,10 @@ float32 emulation of the new kernel's schedule (sentinel edges, the next
 check update run before the vote, the grouped sums, term by term so that
 every add rounds as the card's does) is bit-equal to a term-by-term
 emulation of K2's first port (git 5fb6243: per-slot lists and mask
-tests), and equal to
-``plain_v1`` within the tolerances of tests/test_torch_ldpc.py.
+tests), and to ``plain_v1``, which sums in K2's order; its bf16 build's
+schedule (``precision="bf16"``: the factor, the gathered LLRs and each
+summed message rounded to bfloat16) is bit-equal to ``plain_v1``'s bf16
+mode.
 """
 
 import numpy as np
@@ -23,7 +25,7 @@ import pytest
 import torch
 
 from ria_tpu_torch.fec import ldpc_kernel as K
-from ria_tpu_torch.fec.ldpc import ldpc_decoder
+from ria_tpu_torch.fec.ldpc import _bf16, ldpc_decoder
 from ria_tpu_torch.fec.ldpc_matrix import CODE_PARAMS, LLR_CLAMP, get_code
 from test_torch_ldpc import CASES, ITERS, LADDER, _awgn_llrs
 
@@ -168,14 +170,18 @@ def test_k2_variable_pass_is_balanced(rate):
         assert loads.max() == 7
 
 
-def _emulate_new(rate, llr, fac, max_iters):
+def _emulate_new(rate, llr, fac, max_iters, precision="f32"):
     """The new K2's schedule, step by step, in float32 over a batch: slots
     with no edge gather the sentinel variable (+inf) and store to a trash
     slot, with no mask; the prologue's check update from the channel LLRs;
     then per iteration the grouped variable pass over the stored cells, the
     gather with v2c, parity and pass 1, the speculative next check update
     (after the vote in iteration 1, skipped on the last), and the vote,
-    after which a converged row freezes."""
+    after which a converged row freezes.  ``"bf16"`` rounds where the bf16
+    build's ``operand()`` does: the factor, each gathered LLR and each
+    message the variable pass loads (the stored messages stay float32)."""
+    rnd = _bf16 if precision == "bf16" else (lambda x: x)
+    fac = rnd(fac)
     code, lay = _layout(rate)
     B, n = llr.shape
     row = torch.as_tensor(lay.row.T.astype(np.int64))      # [m, D], n on no-edge slots
@@ -189,7 +195,7 @@ def _emulate_new(rate, llr, fac, max_iters):
         ends[v, e] = True
 
     def gather(post):
-        return torch.cat([post, torch.full((B, 1), torch.inf)], dim=1)[:, row]
+        return rnd(torch.cat([post, torch.full((B, 1), torch.inf)], dim=1)[:, row])
 
     def update(v2c, msgs):  # pass 1, pass 2 and the stores
         a = v2c.abs()
@@ -207,7 +213,7 @@ def _emulate_new(rate, llr, fac, max_iters):
         return msgs
 
     def variable_pass(msgs):
-        x = msgs[:, idx]                                   # [B, n, width]
+        x = rnd(msgs[:, idx])                              # [B, n, width]
         acc = torch.zeros((B, n))
         s = torch.zeros((B, n))
         for q in range(width // 4):
@@ -297,25 +303,42 @@ def _emulate_first_k2(rate, llr, fac, max_iters):
     return (post[:, : code.k] < 0).to(torch.uint8), ok, iters, post
 
 
+def _assert_bits_equal(got, want):
+    """Every output of every row equal, posteriors bit for bit."""
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3].view(torch.int32), want[3].view(torch.int32))
+
+
 @pytest.mark.parametrize("case", list(EMU_CASES))
 def test_k2_schedule_emulation_is_bit_equal_to_first_k2_order(case):
     rate, make = EMU_CASES[case]
     llr = torch.as_tensor(make())
     fac = torch.as_tensor(np.resize(LADDER, llr.shape[0]))
     got = _emulate_new(rate, llr, fac, ITERS)
-    want = _emulate_first_k2(rate, llr, fac, ITERS)
-    for a, b in zip(got[:3], want[:3]):
-        assert torch.equal(a, b)
-    assert torch.equal(got[3].view(torch.int32), want[3].view(torch.int32))
+    _assert_bits_equal(got, _emulate_first_k2(rate, llr, fac, ITERS))
     if case == "signed_zeros":
         assert bool((torch.as_tensor(make()).view(torch.int32) == -2**31).any())
-    # And against plain_v1, within the tolerances of tests/test_torch_ldpc.py.
-    plain = ldpc_decoder(rate, ITERS, "cpu").plain_v1(llr, fac)
-    assert torch.equal(got[1], plain.success)
-    ok = got[1]
-    assert torch.equal(got[2][ok], plain.iterations[ok])
-    assert torch.equal(got[0][ok], plain.info_bits[ok])
-    assert torch.allclose(got[3][ok], plain.llr_total[ok], rtol=0, atol=1e-3)
+    # And plain_v1, which sums in K2's order: every output of every row.
+    _assert_bits_equal(got, ldpc_decoder(rate, ITERS, "cpu").plain_v1(llr, fac))
+
+
+@pytest.mark.parametrize("case", list(EMU_CASES) + ["off_grid_r14"])
+def test_k2_bf16_schedule_emulation_is_bit_equal_to_plain_v1_bf16(case):
+    """The bf16 build's schedule against ``plain_v1``'s bf16 mode, every
+    output of every row bit for bit; ``off_grid_r14`` has per-row factors
+    0.7 and 0.8, which bfloat16 rounds (the ladder's are exact in it)."""
+    if case == "off_grid_r14":
+        rate, llr = "R1_4", _awgn_llrs("R1_4", 3, 16, 0.0)
+        fac = np.resize(np.float32([0.7, 0.8]), 16)
+    else:
+        rate, make = EMU_CASES[case]
+        llr = make()
+        fac = np.resize(LADDER, llr.shape[0])
+    llr, fac = torch.as_tensor(llr), torch.as_tensor(fac)
+    got = _emulate_new(rate, llr, fac, ITERS, "bf16")
+    _assert_bits_equal(got, ldpc_decoder(rate, ITERS, "cpu", "bf16").plain_v1(llr, fac))
+    assert not torch.equal(got[3], _emulate_new(rate, llr, fac, ITERS)[3]) or case == "clean_s7"
 
 
 def test_emulations_cover_iterations_and_failures():
