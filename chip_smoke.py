@@ -138,6 +138,14 @@ printing its lines and raising on failure:
    256 codewords with the counts zeroed, the bf16 build launched and the
    float32 build not, every output equal to the plain bf16 decoder's and
    the converged rows' bits to those sent;
+4j. bench.py's twin (``ria_tpu_torch.tools.bench``) on bench.py's batches at
+   bench.py's counts, counts zeroed just before: bench.py's sanity checks
+   hold; each chain call and each ``k1`` and serving call launches K1's
+   float32 build once, each ``k1_bf16`` call its bf16 build once, the
+   ``plain`` row and K2 nothing, and no launch falls outside those parts;
+   K1 ran at B = 256 (chains), 512 (rows) and 4 (serving) only; then K1 and
+   K1 bf16 each equal to its plain version on every copy of the LDPC batch,
+   and each one's device time on its first copy with bound and share;
 5. A/B entry point: ``ria_tpu_torch.tools.ldpc_bench`` at its default size
    (R1/4, B = 512, -1 dB), K1, K2 and the plain decoder reporting the same
    success set and bit accuracy, with K2's launch count from that run; then
@@ -177,7 +185,8 @@ printing its lines and raising on failure:
    version and against its float32 build at B = 256 and the A/B point (CUDA
    events, device time, bound and share);
 8. a JSON line of the sessions, one of phase 4f's runs, one of phase 4g's
-   cases, one of phase 4h's tools, one of the waveform
+   cases, one of phase 4h's tools, one of the stage profile, the twin's line
+   of phase 4j with its seconds, one of the waveform
    classes' ``rx_frame`` times, a JSON line of the kernels, then the last line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
@@ -1279,6 +1288,98 @@ def profile_phase(card: str, dev: torch.device) -> dict:
             "seconds": seconds}
 
 
+# The part of bench.py's twin each decoder row is, and the count each part
+# must move once a call (chains and serving: K1; the rows: their own build).
+BENCH_PARTS = {"mc_dpsk": "k1", "ofdm": "k1", "coherent": "k1", "plain": None, "k1": "k1",
+               "k1_bf16": "k1_bf16", "serving": "k1"}
+
+
+def bench_phase(card: str, dev: torch.device) -> dict:
+    """Phase 4j, bench.py's twin (``ria_tpu_torch.tools.bench``) at
+    bench.py's counts on bench.py's batches.  Returns {"line", "launches"
+    (its parts'), "seconds", "k1_err", "k1_bf16_err", "us": {kernel: (device
+    us, bound us, bound by, iterations)} on the LDPC batch's first copy}."""
+    from ria_tpu_torch.entry import RATE, bench_batches
+    from ria_tpu_torch.fec import ldpc_kernel
+    from ria_tpu_torch.fec.ldpc import LDPCDecoder, ldpc_decoder
+    from ria_tpu_torch.fec.ldpc_matrix import MIN_SUM_FACTOR
+    from ria_tpu_torch.tools import bench as BT
+    from ria_tpu_torch.utils.timing import kernel_us
+
+    t_phase = time.perf_counter()
+    batches = bench_batches(dev)
+    chains = BT.build_chains(batches, dev)
+    variants = batches.ldpc.variants
+    k1_batches = []
+
+    def record(module, args, output):
+        if isinstance(module, LDPCDecoder) and args[0].is_cuda:
+            k1_batches.append((module.precision, args[0].shape[0]))
+
+    torch.cuda.synchronize()
+    zero_counts()
+    handle = torch.nn.modules.module.register_module_forward_hook(record)
+    t0 = time.perf_counter()
+    try:
+        line, launches = BT.run(chains, variants, batches.ldpc.clean.cpu().numpy(), dev)
+    finally:
+        handle.remove()
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    totals = {"k1": ldpc_kernel.LAUNCHES, "k1_bf16": ldpc_kernel.LAUNCHES_BF16,
+              "k2": k2_launches()}
+    d = line["detail"]
+    log(f"[4j bench] python -m ria_tpu_torch.tools.bench: {line['value']:.6g} samples/s "
+        f"(x{line['vs_baseline']:.6g} real time), cw_decode_rate {d['cw_decode_rate']}; ofdm "
+        f"{d['ofdm']['samples_per_s']:.6g}, coherent {d['coherent']['samples_per_s']:.6g} "
+        f"samples/s; {run_s:.1f} s ({card})")
+    for part, n in launches.items():
+        log(f"[4j bench] {part}: {n['calls']} calls, launches K1 {n['k1']}, K1 bf16 "
+            f"{n['k1_bf16']}, K2 {n['k2']}")
+        want = {k: (n["calls"] if k == BENCH_PARTS[part] else 0) for k in totals}
+        if {k: n[k] for k in totals} != want:
+            raise AssertionError(f"phase 4j: {part} launched {n}, {want} expected")
+    if {k: sum(n[k] for n in launches.values()) for k in totals} != totals:
+        raise AssertionError(f"phase 4j: launches outside the twin's parts: {totals}")
+    sizes = {key: k1_batches.count(key) for key in sorted(set(k1_batches))}
+    log(f"[4j bench] decoder forward calls on the card by (precision, batch): {sizes}")
+    chain_calls = sum(launches[p]["calls"] for p in ("mc_dpsk", "ofdm", "coherent"))
+    if sizes != {("bf16", 512): launches["k1_bf16"]["calls"], ("f32", 4): launches["serving"]
+                 ["calls"], ("f32", 256): chain_calls, ("f32", 512): launches["k1"]["calls"]}:
+        raise AssertionError("phase 4j: K1 ran at other batch sizes than B = 256 (chains), "
+                             "512 (rows) and 4 (serving)")
+    for key, value in (("value", line["value"]), ("ofdm", d["ofdm"]["samples_per_s"]),
+                       ("coherent", d["coherent"]["samples_per_s"]),
+                       *((k, v) for k, v in d["ldpc"].items() if k.endswith("_cw_per_s"))):
+        if not (np.isfinite(value) and value > 0):
+            raise AssertionError(f"phase 4j: {key} = {value}")
+    # Each kernel row against its plain version on every copy of the batch.
+    errs, us = {}, {}
+    factors = torch.full((variants[0].shape[0],), MIN_SUM_FACTOR, device=dev)
+    for kernel, precision in (("K1", "f32"), ("K1 bf16", "bf16")):
+        dec = ldpc_decoder(RATE, None, dev, precision)
+        errs[kernel] = 0.0
+        for i, x in enumerate(variants):
+            got, want = dec(x, factors), dec.plain(x, factors)
+            errs[kernel] = max(errs[kernel],
+                               float((got.llr_total - want.llr_total).abs().max()))
+            if not same_bits(got, want):
+                raise AssertionError(f"phase 4j: {kernel} differs from its plain version on "
+                                     f"copy {i} of the LDPC batch")
+        iters = int(dec(variants[0], factors).iterations.sum())
+        t_us, how = kernel_us(lambda: dec(variants[0], factors), "ldpc_bp_kernel")
+        b_us, b_by = bound_us(dec, kernel, variants[0].shape[0], iters)
+        us[kernel] = (t_us, b_us, b_by, iters)
+        log(f"[4j bench] {kernel} on bench.py's LDPC batch (copy 0, B={variants[0].shape[0]}, "
+            f"{iters} codeword-iterations): {t_us:.2f} us per launch ({how}), bound "
+            f"{b_us:.3f} us ({b_by}), {b_us / t_us:.2%} of it reached; equal to its plain "
+            f"version on all {len(variants)} copies ({card})")
+    seconds = time.perf_counter() - t_phase
+    log(f"[4j bench] phase 4j took {seconds:.1f} s")
+    return {"line": line, "launches": launches, "seconds": run_s, "k1_err": errs["K1"],
+            "k1_bf16_err": errs["K1 bf16"], "us": us}
+
+
 def k1_at_sizes(rep_calls: dict, where: str, card: str) -> dict:
     """Phase 7: K1 at each batch size a phase launched it with (device time,
     bound, share).  Returns {"B=.. k=..": (device us, bound us)}."""
@@ -1615,6 +1716,11 @@ def main() -> int:
     # -- 4i. stage profile and the bf16 path ------------------------------------
     profile = profile_phase(card, dev)
     max_err["K1 bf16"] = max(max_err["K1 bf16"], profile["k1_bf16_err"])
+
+    # -- 4j. bench.py's twin --------------------------------------------------
+    bench_run = bench_phase(card, dev)
+    max_err["K1"] = max(max_err["K1"], bench_run["k1_err"])
+    max_err["K1 bf16"] = max(max_err["K1 bf16"], bench_run["k1_bf16_err"])
 
     # -- 5. A/B entry point ---------------------------------------------------
     log(f"[5 A/B] python -m ria_tpu_torch.tools.ldpc_bench {' '.join(BENCH_ARGS)}")
@@ -1988,6 +2094,8 @@ def main() -> int:
                         for name, n in scale["launches"].items()})
         by_path.update({f"tools {name}": n[i] for name, n in tools["launches"].items()})
         by_path["bf16 path"] = profile["launches"][2 * i]
+        by_path["bench chains"] = (bench_run["launches"]["mc_dpsk"]["k1" if i == 0 else "k2"]
+                                   / bench_run["launches"]["mc_dpsk"]["calls"])
         kernels.append({
             "name": "ldpc_bp" if name == "K1" else "ldpc_bp_v1", "route": "cuda",
             "source": source, "replaces": replaces, "launches": n_launch,
@@ -2021,7 +2129,9 @@ def main() -> int:
         "K1 bf16", "ldpc_bp_bf16", "ria_tpu_torch/csrc/ldpc_bp.cu",
         "ria_tpu/fec/ldpc_pallas.py:39", profile["launches"][1],
         {"bf16 path": profile["launches"][1],
-         "ldpc_bench --precision bf16": launches_ab16["LAUNCHES_BF16"] / rows16["k1"].calls}))
+         "ldpc_bench --precision bf16": launches_ab16["LAUNCHES_BF16"] / rows16["k1"].calls,
+         "bench k1_bf16 row": (bench_run["launches"]["k1_bf16"]["k1_bf16"]
+                               / bench_run["launches"]["k1_bf16"]["calls"])}))
     # K2's bf16 build: launched by ``ldpc_bench --precision bf16`` (phase 5)
     # alone.  On every other path K2's count above is of either build and
     # every phase requires it to be 0, so it is this build's count too; the
@@ -2052,6 +2162,11 @@ def main() -> int:
         b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_scale.items()}
     kernels[0]["tools_us_by_batch"] = {
         b: {"device_us": t[0], "bound_us": t[1]} for b, t in k1_tools.items()}
+    # K1's two builds on bench.py's LDPC batch (phase 4j).
+    for kernel, name in ((kernels[0], "K1"), (kernels[2], "K1 bf16")):
+        t_us, b_us, b_by, iters = bench_run["us"][name]
+        kernel["bench_ldpc_batch"] = {"device_us": t_us, "bound_us": b_us, "bound_by": b_by,
+                                      "codeword_iterations": iters}
     for i, kernel in enumerate(kernels[:2]):
         kernel["scaleout_launches_per_rank"] = {name: n[i]
                                                 for name, n in scale["launches"].items()}
@@ -2063,6 +2178,7 @@ def main() -> int:
     log(json.dumps({"tools": tools["summary"], "phase_s": tools["seconds"], "card": card}))
     log(json.dumps({"bench_profile": {"ms": profile["rows"], "split": profile["split"]},
                     "phase_s": profile["seconds"], "card": card}))
+    log(json.dumps({"bench": bench_run["line"], "seconds": bench_run["seconds"], "card": card}))
     # The whole call on the host's clock: the API's number, not a kernel's.
     log(json.dumps({"rx_frame_ms_by_class": {name: t[0] for name, t in api_ms.items()},
                     "spectral_snr_ms_in_call_by_class": {name: t[3] for name, t in api_ms.items()},

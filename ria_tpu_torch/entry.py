@@ -182,10 +182,13 @@ LDPC_BENCH_VARIANT_SIGMA = 0.05
 
 class BenchChain(NamedTuple):
     """One of bench.py's batches: its noisy copies (the tensors bench.py
-    times, on the device) and the info bits sent."""
+    times, on the device), the info bits sent and the batch the copies were
+    made from (bench.py's serving decode takes the LDPC batch's first rows
+    from it, ``bench.py:251``)."""
 
     variants: list[torch.Tensor]
     info: np.ndarray
+    clean: torch.Tensor
 
 
 class BenchBatches(NamedTuple):
@@ -213,11 +216,12 @@ def bench_batches(device: str | torch.device = "cuda") -> BenchBatches:
     rng = np.random.default_rng(0)
     cfg, ncw, batch, window = geometry(production=True)
     audio, info = _make_batch(cfg, ncw, batch, window, production=True, device=dev, rng=rng)
-    chains = [BenchChain(_noisy_copies(audio, rng, BENCH_VARIANTS, BENCH_VARIANT_SIGMA), info)]
+    chains = [BenchChain(_noisy_copies(audio, rng, BENCH_VARIANTS, BENCH_VARIANT_SIGMA), info,
+                         audio)]
     for config in (3, 4):
         audio, info = _make_ofdm_batch(ofdm_geometry(config), device=dev, rng=rng)
         chains.append(BenchChain(_noisy_copies(audio, rng, BENCH_VARIANTS, BENCH_VARIANT_SIGMA),
-                                 info))
+                                 info, audio))
     B = LDPC_BENCH_BATCH
     info = rng.integers(0, 2, (B, get_code(RATE).k)).astype(np.uint8)
     llr = (1.0 - 2.0 * encode_np(info, RATE).astype(np.float32)) * 4.0
@@ -225,7 +229,7 @@ def bench_batches(device: str | torch.device = "cuda") -> BenchBatches:
     noise[B // 2 :] = rng.normal(0, 2.6, (B // 2, LDPC_BITS)).astype(np.float32)
     llr = torch.as_tensor(llr + noise, device=dev)
     chains.append(BenchChain(_noisy_copies(llr, rng, LDPC_BENCH_VARIANTS,
-                                           LDPC_BENCH_VARIANT_SIGMA), info))
+                                           LDPC_BENCH_VARIANT_SIGMA), info, llr))
     return BenchBatches(*chains)
 
 

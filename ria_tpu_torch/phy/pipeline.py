@@ -137,10 +137,16 @@ class RxPipeline(nn.Module):
 
 
 def make_rx_pipeline(cfg: MCDPSKConfig, rate: str, num_codewords: int,
-                     window_samples: int, min_sum_factor: float = 0.75,
+                     window_samples: int, min_sum_factor: float = 0.75, batch_hint: int = 0,
                      device: str | torch.device = "cuda") -> RxPipeline:
     """Batch RX on ``device`` (the card by default; ``device="cpu"`` for the
-    host): audio [B, window_samples] -> RxBatchResult."""
+    host): audio [B, window_samples] -> RxBatchResult.
+
+    ``batch_hint`` keeps the reference's parameter in its place and changes
+    nothing: the reference uses it to pick its Pallas kernel when
+    ``batch_hint * num_codewords`` fills whole 128-row tiles
+    (``ria_tpu/phy/pipeline.py:42-51``), while K1 takes every CUDA batch
+    as it comes (:func:`_pick_decoder`)."""
     return RxPipeline(cfg, rate, num_codewords, window_samples, min_sum_factor, device)
 
 
@@ -221,10 +227,14 @@ class OFDMRxPipeline(nn.Module):
 
 
 def make_ofdm_rx_pipeline(cfg: OFDMConfig, rate: str, window_samples: int,
-                          ci_bits: int | None = None, min_sum_factor: float = 0.9375,
+                          ci_bits: int | None = None, batch_hint: int = 0,
+                          min_sum_factor: float = 0.9375,
                           device: str | torch.device = "cuda") -> OFDMRxPipeline:
     """Batched OFDM RX on ``device`` (the card by default; ``device="cpu"``
-    for the host): audio [B, window_samples] -> OFDMRxBatchResult."""
+    for the host): audio [B, window_samples] -> OFDMRxBatchResult.
+
+    ``batch_hint`` sits where the reference has it and changes nothing, as
+    in :func:`make_rx_pipeline`."""
     return OFDMRxPipeline(cfg, rate, window_samples, ci_bits, min_sum_factor, device)
 
 

@@ -381,7 +381,10 @@ def chirp_detector(cfg: ChirpConfig, num_samples: int,
     return ChirpDetector(cfg, num_samples, device)
 
 
-def detect_dual_chirp(samples: torch.Tensor, cfg: ChirpConfig) -> ChirpSyncResult:
+def detect_dual_chirp(samples: torch.Tensor, cfg: ChirpConfig,
+                      num_samples: int | None = None) -> ChirpSyncResult:
     """Detect the dual-chirp preamble in a fixed-size window (batched over
-    leading axes), on the samples' device."""
+    leading axes), on the samples' device.  ``num_samples`` is ignored, as
+    in the reference (``ria_tpu/sync/chirp.py:318``): the window is
+    ``samples.shape[-1]``."""
     return chirp_detector(cfg, samples.shape[-1], samples.device)(samples)

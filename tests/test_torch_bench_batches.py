@@ -75,12 +75,12 @@ def _bench_draws(monkeypatch):
     llr += noise
     ldpc = [llr + rng.normal(0, 0.05, llr.shape).astype(np.float32) for _ in range(4)]
     monkeypatch.undo()
-    return chains + [ldpc], rng
+    return chains + [ldpc], rng, llr
 
 
 def test_bench_batches_are_bench_draws(monkeypatch):
     got, port_rng = _port_draws(monkeypatch)
-    want, bench_rng = _bench_draws(monkeypatch)
+    want, bench_rng, bench_llr = _bench_draws(monkeypatch)
 
     # Every integer draw equal: info bits, payload bytes and leads, in order.
     assert len(port_rng.integers_drawn) == len(bench_rng.integers_drawn) == 1 + 64 + 2 * 128 + 1
@@ -101,6 +101,15 @@ def test_bench_batches_are_bench_draws(monkeypatch):
             assert np.array_equal(chain.info[b, :, : 8 * (k // 8)].reshape(-1), bits)
             assert not chain.info[b, :, 8 * (k // 8):].any()
     assert np.array_equal(got.ldpc.info, draws[-1])
+
+    # The batches the copies were made from: the LDPC batch is bench.py's
+    # ``llr`` (its serving decode takes the first rows), and each copy
+    # differs from its batch by the copies' noise.
+    assert np.abs(got.ldpc.clean.numpy() - bench_llr).max() < 1e-5
+    for chain, sigma in zip(got, [entry.BENCH_VARIANT_SIGMA] * 3
+                            + [entry.LDPC_BENCH_VARIANT_SIGMA]):
+        diff = (chain.variants[0] - chain.clean).numpy()
+        assert 0.9 * sigma < diff.std() < 1.1 * sigma
 
     # The tensors bench.py times.
     for chain, w_variants in zip(got, want):

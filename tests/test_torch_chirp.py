@@ -67,6 +67,22 @@ def test_zoom_branch_matches_jax():
     assert abs(start[0] - 5123) <= 2 and abs(cfo[0] - 8.0) < 0.5
 
 
+@pytest.mark.parametrize("positional", [False, True])
+def test_num_samples_is_taken_and_ignored(positional):
+    """The reference's ``detect_dual_chirp(samples, cfg, num_samples=None)``
+    drops ``num_samples`` (``ria_tpu/sync/chirp.py:318``); the port takes it
+    in the same place, by keyword or position, and returns what it returns
+    without it, which is the reference's answer."""
+    cfg = tchirp.ChirpConfig(**TINY)
+    n = cfg.total_samples + 3000
+    x = torch.as_tensor(_windows(TINY, n, [(700, 0.0), (1200, 8.0), None], seed=3))
+    got = (tchirp.detect_dual_chirp(x, cfg, n) if positional
+           else tchirp.detect_dual_chirp(x, cfg, num_samples=n))
+    for g, w in zip(got, _compare(TINY, x.numpy())):
+        assert np.array_equal(g.numpy(), w)
+    assert got.detected.tolist() == [True, True, False]
+
+
 def test_short_window_detects_nothing():
     cfg = tchirp.ChirpConfig(**TINY)
     x = np.zeros((2, cfg.total_samples), np.float32)

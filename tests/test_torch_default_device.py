@@ -283,6 +283,7 @@ TOOLS = {
     "goodput": ["--seeds", "1"],
     "adaptive_session_sweep": ["--snrs", "12"],
     "bench_profile": [],
+    "bench": ["--iters", "1", "--trials", "1", "--windows", "2", "--serving-calls", "1"],
 }
 
 

@@ -2,6 +2,7 @@
 
 import ast
 import importlib
+import inspect
 import subprocess
 import sys
 from pathlib import Path
@@ -53,7 +54,7 @@ def test_port_imports_without_jax():
         "import ria_tpu_torch.tools.verify_cfo_chain, ria_tpu_torch.tools.profile_acquisition\n"
         "import ria_tpu_torch.tools.acceptance_sweep, ria_tpu_torch.tools.otfs_mode_sweep\n"
         "import ria_tpu_torch.tools.throughput_test, ria_tpu_torch.tools.goodput\n"
-        "import ria_tpu_torch.tools.adaptive_session_sweep\n"
+        "import ria_tpu_torch.tools.adaptive_session_sweep, ria_tpu_torch.tools.bench\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'cryptography', 'tools')\n"
         "             or m.startswith(('jax.', 'ria_tpu.', 'cryptography.', 'tools.')))\n"
@@ -151,6 +152,8 @@ PACKAGES = ["", "sim", "dsp", "sync", "wave", "phy", "fec", "utils", "protocol",
             "runtime"]
 # Reference names the port does not carry, each with its reason: none is left.
 NAME_GAPS: dict[str, str] = {}
+# Root programs of the reference and their twins in the port.
+ROOT_PROGRAMS = {"bench": "tools.bench"}
 # Reference modules without a twin of the same name, each with its reason.
 MODULE_GAPS = {
     "fec.ldpc_pallas": "its two Pallas kernels are csrc/ldpc_bp.cu and csrc/ldpc_bp_v1.cu, "
@@ -162,6 +165,8 @@ MODULE_GAPS = {
 
 
 def _reference_file(name: str) -> Path:
+    if name in ROOT_PROGRAMS:
+        return ROOT / (name + ".py")
     if name.startswith("tools."):
         return ROOT / "tools" / (name.split(".", 1)[1] + ".py")
     path = ROOT / "ria_tpu" / Path(*name.split(".")) if name else ROOT / "ria_tpu"
@@ -169,6 +174,7 @@ def _reference_file(name: str) -> Path:
 
 
 def _port_module(name: str):
+    name = ROOT_PROGRAMS.get(name, name)
     return importlib.import_module("ria_tpu_torch" + ("." + name if name else ""))
 
 
@@ -194,10 +200,14 @@ def _top_level(name: str) -> tuple[list | None, dict]:
     return exported, names
 
 
-def _reference_modules() -> list[str]:
-    mods = [".".join(p.relative_to(ROOT / "ria_tpu").with_suffix("").parts)
+def _package_modules() -> list[str]:
+    return [".".join(p.relative_to(ROOT / "ria_tpu").with_suffix("").parts)
             for p in sorted((ROOT / "ria_tpu").rglob("*.py")) if p.name != "__init__.py"]
-    return mods + ["tools." + p.stem for p in sorted((ROOT / "tools").glob("*.py"))]
+
+
+def _reference_modules() -> list[str]:
+    return (_package_modules() + ["tools." + p.stem for p in sorted((ROOT / "tools").glob("*.py"))]
+            + list(ROOT_PROGRAMS))
 
 
 @pytest.mark.parametrize("package", PACKAGES, ids=lambda p: p or "ria_tpu")
@@ -229,8 +239,8 @@ def test_package_exports_the_reference_names(package):
 @pytest.mark.parametrize("module", _reference_modules())
 def test_module_keeps_the_reference_names(module):
     """Every public function, class and top-level name of a reference module
-    (or root tool) exists in its twin, but for ``NAME_GAPS``; a module
-    without a twin is one of ``MODULE_GAPS``."""
+    (or root tool, or root program) exists in its twin, but for
+    ``NAME_GAPS``; a module without a twin is one of ``MODULE_GAPS``."""
     if module in MODULE_GAPS:
         with pytest.raises(ModuleNotFoundError):
             _port_module(module)
@@ -239,6 +249,87 @@ def test_module_keeps_the_reference_names(module):
     _, names = _top_level(module)
     missing = sorted(n for n in names if not hasattr(port, n))
     assert missing == sorted(n for n in names if f"{module}.{n}" in NAME_GAPS), missing
+
+
+# Parameters of the reference that the port leaves out on purpose, each with
+# its reason.  The reference's positional parameters after the first of them
+# keep their order in the port but not their places.
+JAX_ONLY_PARAMETERS = {
+    "key": "a jax.random key: the port's channel takes its normals from outside, and "
+           "``draws`` takes the key's place (sim/channel.py)",
+    "pallas_interpret": "runs a Pallas kernel in the interpreter: K1 has no interpreted "
+                        "mode, and its plain version serves CPU tensors (fec/ldpc.py, "
+                        "parallel/)",
+    "devices": "a list of JAX devices for a mesh: a rank holds one torch device, "
+               "``device`` (parallel/mesh.py, parallel/stream.py)",
+}
+
+
+def _signature(obj) -> inspect.Signature:
+    """``obj``'s signature, a ``functools.lru_cache`` unwrapped through
+    ``__wrapped__``."""
+    while not inspect.isclass(obj) and hasattr(obj, "__wrapped__"):
+        obj = obj.__wrapped__
+    return inspect.signature(obj)
+
+
+def _public_callables(module) -> dict:
+    """{name: object} of the public functions and classes ``module`` defines
+    and, as ``"Class.method"``, each public method its classes define."""
+    out = {}
+    for name, obj in vars(module).items():
+        if name.startswith("_") or getattr(obj, "__module__", None) != module.__name__:
+            continue
+        if inspect.isclass(obj):
+            out[name] = obj
+            out.update({f"{name}.{m}": getattr(obj, m) for m, v in vars(obj).items()
+                        if not m.startswith("_") and (callable(v) or isinstance(
+                            v, (staticmethod, classmethod)))})
+        elif callable(obj):
+            out[name] = obj
+    return out
+
+
+def _parameter_faults(ref: inspect.Signature, port: inspect.Signature) -> list[str]:
+    """How ``port`` fails to take the calls ``ref`` takes: a parameter name
+    missing, or a positional parameter out of its place or order."""
+    def names(sig, positional):
+        kinds = ((inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
+                 if positional else (inspect.Parameter.VAR_POSITIONAL,
+                                     inspect.Parameter.VAR_KEYWORD))
+        return [p.name for p in sig.parameters.values() if (p.kind in kinds) == positional]
+
+    faults = [f"no parameter {n!r}" for n in names(ref, False)
+              if n not in JAX_ONLY_PARAMETERS and n not in port.parameters]
+    ref_pos, port_pos = names(ref, True), names(port, True)
+    cut = next((i for i, n in enumerate(ref_pos) if n in JAX_ONLY_PARAMETERS), len(ref_pos))
+    if port_pos[:cut] != ref_pos[:cut]:
+        faults.append(f"positional parameters {port_pos[:cut]}, the reference's {ref_pos[:cut]}")
+    later = iter(port_pos[cut:])
+    if not all(n in later for n in ref_pos[cut:] if n not in JAX_ONLY_PARAMETERS):
+        faults.append(f"positional parameters {port_pos[cut:]} out of the reference's order "
+                      f"{ref_pos[cut:]}")
+    return faults
+
+
+@pytest.mark.parametrize("module", [m for m in _package_modules() if m not in MODULE_GAPS])
+def test_module_takes_the_reference_signatures(module):
+    """Each public function, class and public method of a ``ria_tpu``
+    module, and its twin: the twin takes every parameter name of the
+    reference, its positional parameters in the reference's places, but for
+    ``JAX_ONLY_PARAMETERS``.  So a call written for the reference, positional
+    or by keyword, reaches the same parameters in the port."""
+    ref = importlib.import_module("ria_tpu." + module)
+    port = _port_module(module)
+    faults = {}
+    for name, obj in _public_callables(ref).items():
+        twin = port
+        for part in name.split("."):
+            twin = getattr(twin, part)
+        found = _parameter_faults(_signature(obj), _signature(twin))
+        if found:
+            faults[name] = found
+    assert not faults, faults
 
 
 def test_subpackages_import_with_jax_blocked():

@@ -78,6 +78,27 @@ def test_noisy_chain_and_empty_window_match_jax(config, extra_sigma):
     assert (got.iterations[:2] > 1).any()
 
 
+def test_batch_hint_in_the_reference_place():
+    """The reference's ``make_ofdm_rx_pipeline(cfg, rate, window, ci_bits,
+    batch_hint, min_sum_factor)``: its positional call ``(..., ci, 64)``
+    gives the port's keyword call with ``batch_hint=64``, which decodes as
+    the call without it (factor 0.9375), on audio noisy enough that BP
+    iterates."""
+    geom = ofdm_geometry(3)
+    audio, _ = _make_ofdm_batch(geom, 2, seed=4, device="cpu")
+    audio += torch.as_tensor(np.random.default_rng(6).normal(0, 0.25, audio.shape)
+                             .astype(np.float32))
+    args = (geom.cfg, geom.rate, geom.window, geom.ci_bits)
+    positional = make_ofdm_rx_pipeline(*args, 64, device="cpu")
+    assert positional.min_sum_factor == 0.9375
+    want = make_ofdm_rx_pipeline(*args, device="cpu")(audio)
+    assert (want.iterations > 1).any()
+    for rx in (positional, make_ofdm_rx_pipeline(*args, batch_hint=64, device="cpu")):
+        got = rx(audio)
+        for name, g, w in zip(got._fields, got, want):
+            assert torch.equal(g, w), name
+
+
 @pytest.mark.parametrize("config,case", [(3, bench._ofdm_case), (4, bench._coherent_case)])
 def test_batch_is_bench_batch(config, case):
     """bench.py's chain from np.random.default_rng(0): its first variant is

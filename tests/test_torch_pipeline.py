@@ -65,6 +65,22 @@ def test_production_geometry_matches_jax():
     assert got.info_bits.shape == (2, 4, 162)
 
 
+def test_batch_hint_changes_nothing():
+    """bench.py builds chain 1 as ``make_rx_pipeline(cfg, "R1_4", ncw,
+    window, batch_hint=batch)`` (``bench.py:74``).  The port takes the
+    reference's ``batch_hint`` in its place, by keyword or position, and
+    decodes exactly as without it."""
+    cfg, ncw, batch, window = geometry()
+    audio, _ = _make_batch(cfg, ncw, batch, window, seed=2, device="cpu")
+    want = make_rx_pipeline(cfg, RATE, ncw, window, device="cpu")(audio)
+    for rx in (make_rx_pipeline(cfg, RATE, ncw, window, batch_hint=batch, device="cpu"),
+               make_rx_pipeline(cfg, RATE, ncw, window, 0.75, batch, device="cpu")):
+        assert rx.min_sum_factor == 0.75
+        got = rx(audio)
+        for name, g, w in zip(got._fields, got, want):
+            assert torch.equal(g, w), name
+
+
 def test_entry_runs_tiny_chain():
     rx, (audio,) = entry(device="cpu")
     out = rx(audio)
