@@ -5,10 +5,11 @@ Run from the root of a checkout, with one CUDA card visible:
 
     python3 chip_smoke.py
 
-It builds the LDPC kernels K1 (``ria_tpu_torch/csrc/ldpc_bp.cu``) and K2
-(``ria_tpu_torch/csrc/ldpc_bp_v1.cu``), each in its float32 build and its
-bf16-operand build, from the checkout's sources and runs these phases, each
-printing its lines and raising on failure:
+It builds the LDPC kernels K1 and K2, each in its float32 build
+(``ria_tpu_torch/csrc/ldpc_bp.cu``, ``ldpc_bp_v1.cu``) and its bf16 build,
+the TPU kernels' own arithmetic (``ldpc_bp_bf16.cu``, ``ldpc_bp_v1_bf16.cu``),
+from the checkout's sources and runs these phases, each printing its lines
+and raising on failure:
 
 1. device: the card's name and power limit, as nvidia-smi gives them;
 2. build: nvcc for sm_90a, the four libraries at once, with each build
@@ -1356,7 +1357,8 @@ def bench_phase(card: str, dev: torch.device) -> dict:
     # Each kernel row against its plain version on every copy of the batch.
     errs, us = {}, {}
     factors = torch.full((variants[0].shape[0],), MIN_SUM_FACTOR, device=dev)
-    for kernel, precision in (("K1", "f32"), ("K1 bf16", "bf16")):
+    for kernel, precision, symbol in (("K1", "f32", "ldpc_bp_kernel"),
+                                      ("K1 bf16", "bf16", "ldpc_bp_bf16_kernel")):
         dec = ldpc_decoder(RATE, None, dev, precision)
         errs[kernel] = 0.0
         for i, x in enumerate(variants):
@@ -1367,7 +1369,7 @@ def bench_phase(card: str, dev: torch.device) -> dict:
                 raise AssertionError(f"phase 4j: {kernel} differs from its plain version on "
                                      f"copy {i} of the LDPC batch")
         iters = int(dec(variants[0], factors).iterations.sum())
-        t_us, how = kernel_us(lambda: dec(variants[0], factors), "ldpc_bp_kernel")
+        t_us, how = kernel_us(lambda: dec(variants[0], factors), symbol)
         b_us, b_by = bound_us(dec, kernel, variants[0].shape[0], iters)
         us[kernel] = (t_us, b_us, b_by, iters)
         log(f"[4j bench] {kernel} on bench.py's LDPC batch (copy 0, B={variants[0].shape[0]}, "
@@ -1470,13 +1472,14 @@ def main() -> int:
             if "registers" in line or "bytes stack" in line:
                 log(f"  ptxas: {line.strip()}")
     rate_dec = ldpc_decoder(RATE, None, dev)
+    rate_dec16 = ldpc_decoder(RATE, None, dev, "bf16")  # the bf16 builds' own tables
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for name, res in (("K1", ldpc_kernel.k1_resources(rate_dec.n, rate_dec.k1.slots)),
-                      ("K1 bf16", ldpc_kernel.k1_resources(rate_dec.n, rate_dec.k1.slots,
-                                                           "bf16")),
-                      ("K2", ldpc_kernel.k2_resources(rate_dec.n, rate_dec.k2.slots)),
-                      ("K2 bf16", ldpc_kernel.k2_resources(rate_dec.n, rate_dec.k2.slots,
-                                                           "bf16"))):
+    resources_by_build = {
+        "K1": ldpc_kernel.k1_resources(rate_dec.n, rate_dec.k1.slots),
+        "K1 bf16": ldpc_kernel.k1_resources(rate_dec16.n, rate_dec16.k1.slots, "bf16"),
+        "K2": ldpc_kernel.k2_resources(rate_dec.n, rate_dec.k2.slots),
+        "K2 bf16": ldpc_kernel.k2_resources(rate_dec16.n, rate_dec16.k2.slots, "bf16")}
+    for name, res in resources_by_build.items():
         resident = res["blocks_per_sm"] * sms
         log(f"[2 build] {name} at {RATE}: {res['registers']} registers and "
             f"{res['local_bytes']} bytes of local (spill) memory per thread, "
@@ -1485,8 +1488,8 @@ def main() -> int:
         if res["local_bytes"] or resident < 512:
             raise AssertionError(f"{name} spills, or fewer than 512 codewords are resident")
     for rate in ("R1_2", "R3_4"):
-        dec_r = ldpc_decoder(rate, None, dev)
         for precision in ("f32", "bf16"):
+            dec_r = ldpc_decoder(rate, None, dev, precision)
             res = ldpc_kernel.k1_resources(dec_r.n, dec_r.k1.slots, precision)
             log(f"[2 build] K1 ({precision}) at {rate}: {res['registers']} registers and "
                 f"{res['local_bytes']} bytes of local (spill) memory per thread, "
@@ -1955,10 +1958,12 @@ def main() -> int:
     dec16 = ldpc_decoder(RATE, None, dev, "bf16")
     k2_dec16 = make_cuda_decoder_v1(RATE, device=dev, precision="bf16")
 
-    def time_bf16(name: str, kernel, plain, f32, symbol: str) -> dict:
+    def time_bf16(name: str, kernel, plain, f32, symbol32: str, symbol: str) -> dict:
         """{point: (ms, plain ms, device us, bound, f32 device us)} of the
-        bf16 build ``name``; ``kernel``, ``plain`` and ``f32`` decode (x, f)."""
+        bf16 build ``name``; ``kernel``, ``plain`` and ``f32`` decode (x, f),
+        the builds' kernels are named ``symbol`` and ``symbol32``."""
         out = {}
+        f32_name = name.split()[0]
         for label, x in (("B=256 main path", soft), ("B=512 A/B -1 dB", ab_llr)):
             f = torch.full((x.shape[0],), MIN_SUM_FACTOR, device=dev)
             fns = {"bf16": lambda: kernel(x, f), "plain": lambda: plain(x, f),
@@ -1972,22 +1977,25 @@ def main() -> int:
             b2 = cuda_ms(fns["bf16"], 20)[0]
             p2 = cuda_ms(fns["plain"], 5)[0]
             us16, how = kernel_us(fns["bf16"], symbol)
-            us32 = kernel_us(fns["f32"], symbol)[0]
+            us32 = kernel_us(fns["f32"], symbol32)[0]
             it16 = kernel(x, f).iterations
             bnd = bound_us(dec16, name, x.shape[0], int(it16.sum()))
             out[label] = ((b1 + b2) / 2, (p1 + p2) / 2, us16, bnd, us32)
-            f32_name = name.split()[0]
             log(f"[7 timing] LDPC {RATE} {label}, {name}: mean iterations "
                 f"{it16.float().mean():.2f} (f32 {f32(x, f).iterations.float().mean():.2f}); "
                 f"{name} {b1:.4f} / {b2:.4f} ms, {f32_name} {k32:.4f} ms, {plain_name[name]} "
                 f"{p1:.4f} / {p2:.4f} ms; device time per launch {name} {us16:.2f} us ({how}), "
                 f"{f32_name} {us32:.2f} us, ratio {us16 / us32:.4f}; bound {bnd[0]:.3f} us "
                 f"({bnd[1]}), {bnd[0] / us16:.2%} of it reached ({card})")
+        log(f"[7 timing] {name} resources at {RATE}: {resources_by_build[name]}, "
+            f"{f32_name} {resources_by_build[f32_name]} (registers, local bytes, shared bytes, "
+            f"blocks per SM; {card})")
         return out
 
-    bf16_times = {"K1 bf16": time_bf16("K1 bf16", dec16, dec16.plain, dec, "ldpc_bp_kernel"),
+    bf16_times = {"K1 bf16": time_bf16("K1 bf16", dec16, dec16.plain, dec, "ldpc_bp_kernel",
+                                       "ldpc_bp_bf16_kernel"),
                   "K2 bf16": time_bf16("K2 bf16", k2_dec16, dec16.plain_v1, k2_dec,
-                                       "ldpc_bp_v1_kernel")}
+                                       "ldpc_bp_v1_kernel", "ldpc_bp_v1_bf16_kernel")}
 
     # K1 on each OFDM chain's own 256 codewords, at factor 0.9375.
     for path, (geom, orx, o_audio, _) in ofdm.items():
@@ -2052,9 +2060,9 @@ def main() -> int:
     row = int(torch.nonzero(stuck)[0])
     x1, f1 = ab_llr[row : row + 1], ab_fac[:1]
     floor_fns = {"K1": (lambda: dec(x1, f1), "ldpc_bp_kernel"),
-                 "K1 bf16": (lambda: dec16(x1, f1), "ldpc_bp_kernel"),
+                 "K1 bf16": (lambda: dec16(x1, f1), "ldpc_bp_bf16_kernel"),
                  "K2": (lambda: k2_dec(x1, f1), "ldpc_bp_v1_kernel"),
-                 "K2 bf16": (lambda: k2_dec16(x1, f1), "ldpc_bp_v1_kernel")}
+                 "K2 bf16": (lambda: k2_dec16(x1, f1), "ldpc_bp_v1_bf16_kernel")}
     floor_reads = {name: [] for name in floor_fns}
     for order in (("K1", "K1 bf16", "K1 bf16", "K1"), ("K2", "K2 bf16", "K2 bf16", "K2")):
         for name in order:
@@ -2112,8 +2120,7 @@ def main() -> int:
         ms, plain_ms, dev_us, (b_us, b_by), _ = bf16_times[name]["B=256 main path"]
         ab16 = bf16_times[name]["B=512 A/B -1 dB"]
         return {
-            "name": symbol, "route": "cuda", "source": source,
-            "nvcc_defines": ["-DRIA_BF16_OPERANDS"], "replaces": replaces,
+            "name": symbol, "route": "cuda", "source": source, "replaces": replaces,
             "launches": launched, "launches_per_call": launched,
             "launches_per_call_by_path": by_path, "max_abs_err": max_err[name], "ms": ms,
             "plain_ms": plain_ms, "device_us": dev_us, "bound_us": b_us, "bound_ms": b_us / 1e3,
@@ -2126,7 +2133,7 @@ def main() -> int:
     # entry point with precision="bf16") and by ``ldpc_bench --precision
     # bf16``, per call of its decoder there (the calls the tool counted).
     kernels.append(bf16_entry(
-        "K1 bf16", "ldpc_bp_bf16", "ria_tpu_torch/csrc/ldpc_bp.cu",
+        "K1 bf16", "ldpc_bp_bf16", "ria_tpu_torch/csrc/ldpc_bp_bf16.cu",
         "ria_tpu/fec/ldpc_pallas.py:39", profile["launches"][1],
         {"bf16 path": profile["launches"][1],
          "ldpc_bench --precision bf16": launches_ab16["LAUNCHES_BF16"] / rows16["k1"].calls,
@@ -2143,7 +2150,7 @@ def main() -> int:
     if any(n for path, n in by_path.items() if path != "ldpc_bench --precision bf16"):
         raise AssertionError(f"K2's bf16 build launched off the A/B entry point: {by_path}")
     kernels.append(bf16_entry(
-        "K2 bf16", "ldpc_bp_v1_bf16", "ria_tpu_torch/csrc/ldpc_bp_v1.cu",
+        "K2 bf16", "ldpc_bp_v1_bf16", "ria_tpu_torch/csrc/ldpc_bp_v1_bf16.cu",
         "ria_tpu/fec/ldpc_pallas.py:218", launches_ab16["LAUNCHES_V1_BF16"], by_path))
     kernels[-1]["launches_per_call"] = by_path["ldpc_bench --precision bf16"]
     for kernel, name in zip(kernels, ("K1", "K2", "K1 bf16", "K2 bf16")):

@@ -17,18 +17,10 @@
 //     reach the variable through edge slot d.  (K1 sums a variable's
 //     messages in one flat run; the two differ in the last bit.)
 // The TPU kernel's one-hot dots exist only for Mosaic; here a gather is an
-// index load from shared memory and the scatter a store.  The default build
-// computes all of this in float32.  Built with -DRIA_BF16_OPERANDS it
-// computes the TPU kernel's own arithmetic (fec/ldpc.py::plain_v1 with
-// precision="bf16", bit for bit): operand() rounds to bfloat16 (nearest
-// even) at the four places the TPU kernel does -- the factor, once a block
-// (ldpc_pallas.py:264-265); the channel LLRs at the first gather and the
-// posteriors at every gather (:256-259, :316, :335), so that both g - c2v
-// and the parity read the rounded g; and each check message as the
-// variable pass sums it (:267-274).  The stored c2v stay float32, because
-// g - c2v reads the float32 message: the variable pass rounds each lane it
-// loads, as K1's bf16 build does.  The clamp, the sums and the check
-// update stay float32.
+// index load from shared memory and the scatter a store.  Everything here
+// is float32.  The TPU kernel's own arithmetic (bfloat16 operands and
+// factor; fec/ldpc.py::plain_v1 with precision="bf16") is K2's bf16 build,
+// csrc/ldpc_bp_v1_bf16.cu, a design of its own.
 //
 // Layout: one thread block per codeword, 512 threads.  Thread c owns check
 // c (m <= 486 for every rate) and one or two variable "jobs".  Shared memory
@@ -111,9 +103,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
-#ifdef RIA_BF16_OPERANDS
-#include <cuda_bf16.h>
-#endif
 
 #ifndef K2_SPECULATE        // 0: vote before every check update (three barriers)
 #define K2_SPECULATE 1
@@ -150,16 +139,6 @@ __device__ __forceinline__ unsigned field(unsigned x, unsigned pos, unsigned len
   return r;
 }
 
-// An operand of the TPU kernel's dots (or its factor): rounded to bfloat16 in
-// the bf16 build, unchanged in the float32 one.
-__device__ __forceinline__ float operand(float x) {
-#ifdef RIA_BF16_OPERANDS
-  return __bfloat162float(__float2bfloat16_rn(x));
-#else
-  return x;
-#endif
-}
-
 // The float `bytes` bytes into `base` (a shared array).
 __device__ __forceinline__ float& at(float* base, unsigned bytes) {
   return *reinterpret_cast<float*>(reinterpret_cast<char*>(base) + bytes);
@@ -188,7 +167,7 @@ __device__ __forceinline__ void zero_cells(int job, float* smem, int stride) {
 
 // post[v] = llr + (((0 + s_0) + s_1) + ...): each slot group summed from
 // 0.0 in stored (ascending check) order, closed at the cell its ends bit
-// marks; each message as an operand of the TPU kernel's scatter.
+// marks.
 __device__ __forceinline__ void variable_sum(int job, float llr, float* smem, int stride) {
   if (job < 0) return;
   const float4* cell = reinterpret_cast<const float4*>(smem) + field(job, 10, 13);
@@ -196,10 +175,10 @@ __device__ __forceinline__ void variable_sum(int job, float llr, float* smem, in
 #pragma unroll 1
   for (unsigned ends = field(job, 23, 8); ends; ends >>= 1, cell += stride) {
     const float4 a = *cell;
-    s += operand(a.x);
-    s += operand(a.y);
-    s += operand(a.z);
-    s += operand(a.w);
+    s += a.x;
+    s += a.y;
+    s += a.z;
+    s += a.w;
     if (ends & 1u) {
       acc += s;
       s = 0.0f;
@@ -269,7 +248,7 @@ ldpc_bp_v1_kernel(const float* __restrict__ llr, const float* __restrict__ facto
   int job1 = jobs[kThreads + tid];
   job0 += job0 < 0 ? 0 : rebase;
   job1 += job1 < 0 ? 0 : rebase;
-  const float fac = operand(factors[b]);
+  const float fac = factors[b];
   zero_cells(job0, smem, stride);
   zero_cells(job1, smem, stride);
   if (tid == 0) {
@@ -327,7 +306,7 @@ ldpc_bp_v1_kernel(const float* __restrict__ llr, const float* __restrict__ facto
 #pragma unroll
     for (int d = 0; d < kMaxDeg; ++d) {
       if (REAL(d)) {
-        const float x = operand(at(smem, field(EDGE(d), 0, 16)));
+        const float x = at(smem, field(EDGE(d), 0, 16));
         V2C(d) = x;
         min1 = fminf(min1, fabsf(x));
         if (x < 0.0f) sign |= 1u << d;
@@ -353,7 +332,7 @@ ldpc_bp_v1_kernel(const float* __restrict__ llr, const float* __restrict__ facto
       for (int d = 0; d < kMaxDeg; ++d) {
         if (REAL(d)) {
           // This iteration's c2v, read back from the slot it was stored in.
-          const float g = operand(at(smem, field(EDGE(d), 0, 16)));
+          const float g = at(smem, field(EDGE(d), 0, 16));
           const float x =
               fminf(fmaxf(g - at(smem, field(EDGE(d), 16, 16)), -kClamp), kClamp);
           V2C(d) = x;

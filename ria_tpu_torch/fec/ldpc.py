@@ -91,7 +91,7 @@ class LDPCDecoder(nn.Module):
     checked once into ``self.k1``) and K2's ``k2_row``/``k2_epos``/``k2_jobs``
     (:func:`ldpc_kernel.k2_layout`, checked once into ``self.k2``).
     ``precision`` picks the rounding of :meth:`plain` and :meth:`plain_v1`
-    and the build of K1 and K2.  ``v1_edges`` ([n, sum of the slots' widest
+    and the build of K1 and K2, and with it their tables.  ``v1_edges`` ([n, sum of the slots' widest
     group]) lists each variable's messages in K2's order for
     :meth:`_slot_sum`, the group widths in ``v1_groups``.
     """
@@ -110,13 +110,13 @@ class LDPCDecoder(nn.Module):
             _var_edges(code.row_idx, code.row_mask, code.n), device=dev))
         v1_edges, self.v1_groups = _slot_edges(code.row_idx, code.row_mask, code.n)
         self.register_buffer("v1_edges", torch.as_tensor(v1_edges, device=dev))
-        layout = ldpc_kernel.k1_layout(code.row_idx, code.row_mask, code.n)
+        layout = ldpc_kernel.k1_layout(code.row_idx, code.row_mask, code.n, precision)
         self.register_buffer("k1_row", torch.as_tensor(layout.row, device=dev))
         self.register_buffer("k1_epos", torch.as_tensor(layout.epos, device=dev))
         self.register_buffer("k1_jobs", torch.as_tensor(layout.jobs, device=dev))
         self.k1 = ldpc_kernel.k1_tables(layout, self.k1_row, self.k1_epos, self.k1_jobs,
                                         code.n)
-        layout2 = ldpc_kernel.k2_layout(code.row_idx, code.row_mask, code.n)
+        layout2 = ldpc_kernel.k2_layout(code.row_idx, code.row_mask, code.n, precision)
         self.register_buffer("k2_row", torch.as_tensor(layout2.row, device=dev))
         self.register_buffer("k2_epos", torch.as_tensor(layout2.epos, device=dev))
         self.register_buffer("k2_jobs", torch.as_tensor(layout2.jobs, device=dev))

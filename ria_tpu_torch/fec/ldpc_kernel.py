@@ -1,14 +1,15 @@
 """LDPC min-sum belief-propagation kernels in CUDA C++, bound with ctypes.
 
-- K1 (``csrc/ldpc_bp.cu``, :func:`bp_decode`) replaces the Pallas TPU kernel
-  ``ria_tpu/fec/ldpc_pallas.py::make_pallas_decoder``, in two builds of one
-  source: float32 (the default) and, with ``-DRIA_BF16_OPERANDS``, the
-  TPU kernel's own rounding of its matmul operands to bfloat16
-  (``precision="bf16"``);
-- K2 (``csrc/ldpc_bp_v1.cu``, :func:`bp_decode_v1`) replaces
+- K1 (:func:`bp_decode`) replaces the Pallas TPU kernel
+  ``ria_tpu/fec/ldpc_pallas.py::make_pallas_decoder``, in two builds:
+  float32 (``csrc/ldpc_bp.cu``, the default) and the TPU kernel's own
+  rounding of its matmul operands to bfloat16 (``csrc/ldpc_bp_bf16.cu``,
+  ``precision="bf16"``);
+- K2 (:func:`bp_decode_v1`) replaces
   ``ria_tpu/fec/ldpc_pallas.py::make_pallas_decoder_v1``, in the same two
-  builds: float32 and, with ``-DRIA_BF16_OPERANDS``, that TPU kernel's own
-  rounding of its operands and its factor to bfloat16.
+  builds: float32 (``csrc/ldpc_bp_v1.cu``) and that TPU kernel's own
+  rounding of its operands and its factor to bfloat16
+  (``csrc/ldpc_bp_v1_bf16.cu``).
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, on first use, under ``build/ria_tpu_torch/``
@@ -16,7 +17,9 @@ at the root of the checkout; :func:`build` starts one ``nvcc`` per missing
 library, all at once.  A library's name carries a hash of its source and the
 flags, so an edited source rebuilds; deleting the directory forces a rebuild.
 The libraries are loaded with ``ctypes`` and launch on PyTorch's current
-stream.
+stream.  Each build has its own host tables (:func:`k1_layout` and
+:func:`k2_layout` of its precision): the bf16 builds store their messages
+as bfloat16, 8 to a 16-byte cell, where the float32 ones store 4.
 
 Nothing here runs at import time: this module imports on a host with no
 CUDA toolkit and no card.  Both wrappers take CUDA tensors only; the plain
@@ -61,17 +64,19 @@ K2_THREADS = 512  # threads per K2 block: kThreads in csrc/ldpc_bp_v1.cu
 
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _SOURCE = _CSRC / "ldpc_bp.cu"
+_SOURCE_BF16 = _CSRC / "ldpc_bp_bf16.cu"
 _SOURCE_V1 = _CSRC / "ldpc_bp_v1.cu"
+_SOURCE_V1_BF16 = _CSRC / "ldpc_bp_v1_bf16.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ria_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Each library: (source, extra nvcc flags).  The C entry points are named
-# after the source (``ria_<stem>_decode``).
+# after the source (``ria_<stem>_decode``, ``ria_<stem>_resources``).
 LIBRARIES = {
     "ldpc_bp": (_SOURCE, ()),
-    "ldpc_bp_bf16": (_SOURCE, ("-DRIA_BF16_OPERANDS",)),
+    "ldpc_bp_bf16": (_SOURCE_BF16, ()),
     "ldpc_bp_v1": (_SOURCE_V1, ()),
-    "ldpc_bp_v1_bf16": (_SOURCE_V1, ("-DRIA_BF16_OPERANDS",)),
+    "ldpc_bp_v1_bf16": (_SOURCE_V1_BF16, ()),
 }
 # Each kernel's library for each precision.
 K1_LIBRARY = {"f32": "ldpc_bp", "bf16": "ldpc_bp_bf16"}
@@ -111,17 +116,21 @@ class K1Layout(NamedTuple):
     row: np.ndarray    # [D, m] int16: variable on slot d of thread c's check; n if none
     epos: np.ndarray   # [D, m] int16: that edge's slot in the message array; slots if none
     jobs: np.ndarray   # [2, K1_THREADS] int32: packed variable jobs of each thread; -1 none
-    slots: int         # length of the message array (a multiple of 4)
-    stride: int        # cells between a job's consecutive 4-slot cells
+    slots: int         # length of the message array (a multiple of 8)
+    stride: int        # cells between a job's consecutive 16-byte cells
+    precision: str = "f32"  # the build the tables are for
 
 
 def unpack_job(job: int) -> tuple[int, int, int]:
-    """(variable, first 4-slot cell, cell count) of a packed K1 job; cell q
-    of the job is cell ``first + q * stride`` of the message array."""
-    return job & 1023, (job >> 15) & 8191, (job >> 10) & 31
+    """(variable, first 16-byte cell, cell count) of a packed K1 job; cell q
+    of the job is cell ``first + q * stride`` of the message array.  In the
+    bf16 tables a job of 0 cells is a word job: its messages (at most 2)
+    fill 4-byte word ``first``."""
+    return job & 1023, (job >> 15) & 65535, (job >> 10) & 31
 
 
-def k1_layout(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> K1Layout:
+def k1_layout(row_idx: np.ndarray, row_mask: np.ndarray, n: int,
+              precision: str = "f32") -> K1Layout:
     """K1's tables: messages in a padded, cell-interleaved CSC order, a
     balanced variable pass, and each check's edges spread over the D slots
     to keep shared-memory bank conflicts low.
@@ -142,6 +151,13 @@ def k1_layout(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> K1Layout:
     the kernel sums a variable with 128-bit loads that do not conflict.  A
     job packs ``v | cells << 10 | first << 15``.
 
+    The bf16 build's tables (``precision="bf16"``) hold bfloat16 messages,
+    2 bytes each: a cell holds 8 of them (the lead lane doubled), and a
+    variable of at most 2 edges (R1_4's 486 of degree 1) is a word job, 0
+    cells, whose messages fill one 4-byte word in ascending edge order,
+    zero-padded; the words follow the cells, one per job in thread order, so
+    a warp's word loads take one pass.
+
     Each check's edges may sit on any of its D slots (the min-sum update
     does not depend on their order): they are placed greedily so that the
     32 checks of a warp gather ``post[v]`` and store to ``epos`` on as
@@ -152,24 +168,47 @@ def k1_layout(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> K1Layout:
     row_idx, row_mask = np.asarray(row_idx), np.asarray(row_mask)
     m, D = row_idx.shape
     T = K1_THREADS
+    bf16 = _is_bf16(precision)
     if n > 1023 or m > T:  # a job packs v in 10 bits; one thread per check
         raise ValueError(f"K1 takes n <= 1023 variables and m <= {T} checks")
     col_ptr, _ = csc_tables(row_idx, row_mask, n)
     deg = np.diff(col_ptr)
-    cells = (deg + 3) // 4
+    lanes = 8 if bf16 else 4                              # messages a 16-byte cell holds
+    cells = np.where(deg <= 2, 0, (deg + 7) // 8) if bf16 else (deg + 3) // 4
     job_of, first, stride, n_cells = _deal_jobs(cells, T, "K1")
-    lead = np.where((deg > 0) & (deg < 4), (first // 8) % 4 % (5 - np.minimum(deg, 4)), 0)
-    slots = 4 * n_cells
-    if cells.max(initial=0) > 31 or slots > 16380:  # byte offsets of slots fit 16 bits
+    lead = np.where((deg > 0) & (deg < lanes) & (cells > 0),
+                    (first // 8) % 4 * (lanes // 4) % (lanes + 1 - np.minimum(deg, lanes)), 0)
+    slots = lanes * n_cells
+    if bf16:  # the word jobs' words, after the cells
+        words = _word_ranks(job_of, cells == 0, T)
+        first = np.where(cells == 0, 4 * n_cells + words, first)
+        slots += -(-2 * int((cells == 0).sum()) // 8) * 8
+    # Byte offsets of the slots (the trash cell's too) fit 16 bits.
+    if cells.max(initial=0) > 31 or slots * (16 // lanes) > 65520:
         raise ValueError(f"K1's message array of {slots} slots is too long")
     jobs = np.full((2, T), -1, np.int64)
     jobs[job_of[:, 0], job_of[:, 1]] = np.arange(n) | (cells << 10) | (first << 15)
 
     e_rank = edge_positions(row_idx, row_mask, n) - col_ptr[np.where(row_mask, row_idx, 0)]
     e_rank = e_rank + lead[row_idx]
-    edge_slot = 4 * (first[row_idx] + (e_rank // 4) * stride) + e_rank % 4
-    row, epos = _place_edges(row_idx, row_mask, edge_slot, n, slots)
-    return K1Layout(row, epos, jobs.astype(np.int32), slots, stride)
+    v_first = first[row_idx]
+    edge_slot = lanes * (v_first + (e_rank // lanes) * stride) + e_rank % lanes
+    if bf16:
+        edge_slot = np.where(cells[row_idx] == 0, 2 * v_first + e_rank, edge_slot)
+    row, epos = _place_edges(row_idx, row_mask, edge_slot, n, slots, 2 if bf16 else 4)
+    return K1Layout(row, epos, jobs.astype(np.int32), slots, stride, precision)
+
+
+def _is_bf16(precision: str) -> bool:
+    _library_for(K1_LIBRARY, precision)  # raises on a precision with no build
+    return precision == "bf16"
+
+
+def _word_ranks(job_of: np.ndarray, word: np.ndarray, T: int) -> np.ndarray:
+    """Each word job's place among the word jobs in (job row, thread) order,
+    so that neighbouring threads load neighbouring words."""
+    key = np.where(word, job_of[:, 0] * T + job_of[:, 1], 2 * T)
+    return np.argsort(np.argsort(key, kind="stable"), kind="stable")
 
 
 def _deal_jobs(cells: np.ndarray, T: int, name: str) -> tuple[np.ndarray, np.ndarray, int, int]:
@@ -200,33 +239,35 @@ def _deal_jobs(cells: np.ndarray, T: int, name: str) -> tuple[np.ndarray, np.nda
 
 
 def _place_edges(row_idx: np.ndarray, row_mask: np.ndarray, edge_slot: np.ndarray, n: int,
-                 slots: int) -> tuple[np.ndarray, np.ndarray]:
+                 slots: int, slot_bytes: int = 4) -> tuple[np.ndarray, np.ndarray]:
     """Each check's edges on its D table slots, placed greedily so that the
-    32 checks of a warp gather ``post[v]`` and store to their message slots
-    on as few addresses per shared-memory bank as the code allows (the
-    check update does not depend on the order of a check's edges).  Returns
+    32 checks of a warp gather ``post[v]`` (4 bytes) and store to their
+    message slots (``slot_bytes`` each) on as few 4-byte words per
+    shared-memory bank as the code allows (the check update does not
+    depend on the order of a check's edges).  Returns
     ``row`` and ``epos`` [D, m] int16: the variable and message slot
     (``edge_slot [m, D]``) of each table slot; ``n`` and ``slots`` where a
     check has no edge."""
     m, D = row_idx.shape
     row = np.full((D, m), n, np.int64)
     epos = np.full((D, m), slots, np.int64)
-    taken = {}  # (warp, slot, bank, gather or store) -> addresses
+    taken = {}  # (warp, slot, bank, gather or store) -> words
     for c in range(m):
         free = list(range(D))
         for d in np.flatnonzero(row_mask[c]):
-            v, e = int(row_idx[c, d]), int(edge_slot[c, d])
+            v = int(row_idx[c, d])
+            e = int(edge_slot[c, d]) * slot_bytes // 4
 
             def cost(s, v=v, e=e):
                 g = taken.get((c // 32, s, v % 32, 0), set())
                 st = taken.get((c // 32, s, e % 32, 1), set())
-                return len(g - {v}) + len(st), s
+                return len(g - {v}) + len(st - {e}), s
 
             s = min(free, key=cost)
             free.remove(s)
             taken.setdefault((c // 32, s, v % 32, 0), set()).add(v)
             taken.setdefault((c // 32, s, e % 32, 1), set()).add(e)
-            row[s, c], epos[s, c] = v, e
+            row[s, c], epos[s, c] = row_idx[c, d], edge_slot[c, d]
     return row.astype(np.int16), epos.astype(np.int16)
 
 
@@ -238,6 +279,7 @@ class K1Tables(NamedTuple):
     slots: int
     stride: int
     n: int
+    precision: str = "f32"
 
 
 def k1_tables(layout: K1Layout, row: torch.Tensor, epos: torch.Tensor,
@@ -245,7 +287,7 @@ def k1_tables(layout: K1Layout, row: torch.Tensor, epos: torch.Tensor,
     """Check the device copies of a :class:`K1Layout` once, so that
     :func:`bp_decode` need not on every call."""
     _check_tables(layout, row, epos, jobs, K1_THREADS)
-    return K1Tables(row, epos, jobs, layout.slots, layout.stride, n)
+    return K1Tables(row, epos, jobs, layout.slots, layout.stride, n, layout.precision)
 
 
 def _check_tables(layout, row: torch.Tensor, epos: torch.Tensor, jobs: torch.Tensor,
@@ -284,19 +326,25 @@ class K2Layout(NamedTuple):
     row: np.ndarray    # [D, m] int16: variable on table slot d of thread c's check; n if none
     epos: np.ndarray   # [D, m] int16: that edge's slot in the message array; slots if none
     jobs: np.ndarray   # [2, K2_THREADS] int32: packed variable jobs of each thread; -1 none
-    slots: int         # length of the message array (a multiple of 4)
-    stride: int        # cells between a job's consecutive 4-slot cells
+    slots: int         # length of the message array (a multiple of 4, of 8 for bf16)
+    stride: int        # cells between a job's consecutive 16-byte cells
+    precision: str = "f32"  # the build the tables are for
 
 
 def unpack_k2_job(job: int) -> tuple[int, int, int]:
-    """(variable, first 4-slot cell, group ends) of a packed K2 job: cell q
-    of the job is cell ``first + q * stride`` of the message array, bit q of
-    ``ends`` is set where cell q ends one of the variable's slot groups, and
-    the job has as many cells as ``ends`` has bits up to its highest set one."""
+    """(variable, first 16-byte cell, group ends) of a packed K2 job.  Its
+    messages sit in 4-slot units, as many to a cell as the cell holds (1
+    float32, 2 bfloat16); unit u of the job is unit ``u % per_cell`` of cell
+    ``first + (u // per_cell) * stride`` of the message array, bit u of
+    ``ends`` is set where unit u ends one of the variable's slot groups, and
+    the job has as many units as ``ends`` has bits up to its highest set one.
+    In the bf16 tables a job with no ends is a word job: its messages (at
+    most 2) fill 4-byte word ``first``."""
     return job & 1023, (job >> 10) & 8191, (job >> 23) & 255
 
 
-def k2_layout(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> K2Layout:
+def k2_layout(row_idx: np.ndarray, row_mask: np.ndarray, n: int,
+              precision: str = "f32") -> K2Layout:
     """K2's tables: messages in the order K2 sums them, a balanced variable
     pass, and each check's edges spread over the D table slots.
 
@@ -318,6 +366,14 @@ def k2_layout(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> K2Layout:
     iteration is longer than the heaviest variable's cells (7 at R1_4).  A
     job packs ``v | first << 10 | ends << 23`` (:func:`unpack_k2_job`).
 
+    The bf16 build (``precision="bf16"``) stores bfloat16 messages: the same
+    4-slot units, two to a 16-byte cell, so a group closes at the middle or
+    the end of a cell (4 cells at R1_4); a variable of at most 2 edges is a
+    word job, as in :func:`k1_layout` (their sum does not depend on how its
+    1 or 2 messages are grouped); the message array starts after the channel
+    LLRs, the posteriors and their roundings in shared memory
+    (:func:`k2_message_base`).
+
     The table slots: K2's check update does not depend on the order of a
     check's edges either, so they are placed as K1's are.  A slot with no
     edge holds the sentinel variable ``n`` and message slot ``slots``.
@@ -325,22 +381,34 @@ def k2_layout(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> K2Layout:
     row_idx, row_mask = np.asarray(row_idx), np.asarray(row_mask)
     m, D = row_idx.shape
     T = K2_THREADS
+    bf16 = _is_bf16(precision)
+    per_cell = 2 if bf16 else 1                            # 4-slot units a cell
     if n > 1023 or m > T:  # a job packs v in 10 bits; one thread per check
         raise ValueError(f"K2 takes n <= 1023 variables and m <= {T} checks")
     slot_ptr, _ = slot_tables(row_idx, row_mask, n)
     size = np.diff(slot_ptr, axis=1).T.astype(np.int64)   # [n, D] messages per slot group
-    gcells = (size + 3) // 4
-    cells = gcells.sum(axis=1)
-    job_of, first, stride, n_cells = _deal_jobs(cells, T, "K2")
-    slots = 4 * n_cells
+    gunits = (size + 3) // 4
+    units = gunits.sum(axis=1)
+    word = (size.sum(axis=1) <= 2) & bf16                  # word jobs
+    job_of, first, stride, n_cells = _deal_jobs(np.where(word, 0, -(-units // per_cell)), T,
+                                                "K2")
+    slots = 4 * per_cell * n_cells
+    if bf16:  # the word jobs' words, after the cells
+        first = np.where(word, 4 * n_cells + _word_ranks(job_of, word, T), first)
+        slots += -(-2 * int(word.sum()) // 8) * 8
     # The kernel addresses the messages by byte offsets from the start of
-    # its shared memory (posteriors [n + 4], then the messages [slots + 4]).
-    if cells.max(initial=0) > 8 or (n + slots + 8) * 4 > 65535 or (n + 4) // 4 + n_cells > 8191:
+    # its shared memory (the message array [slots + a cell] at ``base``),
+    # its cells in 13 bits of 16 bytes and its words in 13 bits of 4.
+    base = k2_message_base(n, precision)
+    slot_bytes = 2 if bf16 else 4
+    if (units.max(initial=0) > 8 or base + slots * slot_bytes + 16 > 65535
+            or base // 16 + n_cells > 8191 or (bf16 and base // 4 + slots // 2 > 8191)):
         raise ValueError(f"K2's message array of {slots} slots is too long")
-    q0 = np.cumsum(gcells, axis=1) - gcells                # first job cell of each group
+    q0 = np.cumsum(gunits, axis=1) - gunits                # first job unit of each group
     ends = np.zeros(n, np.int64)
     for d in range(D):
-        ends |= np.where(size[:, d] > 0, 1 << np.maximum(q0[:, d] + gcells[:, d] - 1, 0), 0)
+        ends |= np.where(size[:, d] > 0, 1 << np.maximum(q0[:, d] + gunits[:, d] - 1, 0), 0)
+    ends = np.where(word, 0, ends)
     jobs = np.full((2, T), -1, np.int64)
     jobs[job_of[:, 0], job_of[:, 1]] = np.arange(n) | (first << 10) | (ends << 23)
 
@@ -350,13 +418,26 @@ def k2_layout(row_idx: np.ndarray, row_mask: np.ndarray, n: int) -> K2Layout:
     rank[np.lexsort((chk, var, slot))] = np.arange(len(chk))
     i = rank - slot_ptr[slot, var]                         # place within its group
     g = size[var, slot]
-    q = q0[var, slot] + np.where(g < 4, 0, i // 4)
-    cell = first[var] + q * stride
-    lane = np.where(g < 4, (cell // 8) % 4 % (5 - np.minimum(g, 4)) + i, i % 4)
+    u = q0[var, slot] + np.where(g < 4, 0, i // 4)
+    unit = per_cell * (first[var] + (u // per_cell) * stride) + u % per_cell
+    lane = np.where(g < 4, (unit // 8) % 4 % (5 - np.minimum(g, 4)) + i, i % 4)
     edge_slot = np.full((m, D), -1, np.int64)
-    edge_slot[chk, slot] = 4 * cell + lane
-    row, epos = _place_edges(row_idx, row_mask, edge_slot, n, slots)
-    return K2Layout(row, epos, jobs.astype(np.int32), slots, stride)
+    edge_slot[chk, slot] = 4 * unit + lane
+    if bf16:  # a word job's messages in slot_tables' order: by slot, then check
+        at_var = np.empty(len(chk), np.int64)
+        at_var[np.lexsort((chk, slot, var))] = np.arange(len(chk))
+        at_var -= np.cumsum(np.bincount(var, minlength=n))[var] - np.bincount(var, minlength=n)[var]
+        edge_slot[chk, slot] = np.where(word[var], 2 * first[var] + at_var, 4 * unit + lane)
+    row, epos = _place_edges(row_idx, row_mask, edge_slot, n, slots, slot_bytes)
+    return K2Layout(row, epos, jobs.astype(np.int32), slots, stride, precision)
+
+
+def k2_message_base(n: int, precision: str = "f32") -> int:
+    """Byte offset of K2's message array in its shared memory: after the
+    float32 posteriors ``[n + 4]`` (the float32 build), or after the channel
+    LLRs, the posteriors and their bfloat16 roundings, each ``[n + 4]``
+    floats (the bf16 build)."""
+    return 4 * (n + 4) if not _is_bf16(precision) else 12 * (n + 4)
 
 
 class K2Tables(NamedTuple):
@@ -367,6 +448,7 @@ class K2Tables(NamedTuple):
     slots: int
     stride: int
     n: int
+    precision: str = "f32"
 
 
 def k2_tables(layout: K2Layout, row: torch.Tensor, epos: torch.Tensor,
@@ -374,7 +456,7 @@ def k2_tables(layout: K2Layout, row: torch.Tensor, epos: torch.Tensor,
     """Check the device copies of a :class:`K2Layout` once, so that
     :func:`bp_decode_v1` need not on every call."""
     _check_tables(layout, row, epos, jobs, K2_THREADS)
-    return K2Tables(row, epos, jobs, layout.slots, layout.stride, n)
+    return K2Tables(row, epos, jobs, layout.slots, layout.stride, n, layout.precision)
 
 
 def _nvcc() -> str:
@@ -447,8 +529,10 @@ def build() -> dict[str, Build]:
     return compile_libraries(dict(LIBRARIES))
 
 
-# Pointer and int arguments of each C entry point (then the stream).
-_ARGS = {"ldpc_bp": (9, 8), "ldpc_bp_v1": (9, 8)}
+# Pointer and int arguments of each C entry point (then the stream), by the
+# stem of its source.
+_ARGS = {"ldpc_bp": (9, 8), "ldpc_bp_bf16": (9, 8), "ldpc_bp_v1": (9, 8),
+         "ldpc_bp_v1_bf16": (9, 8)}
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -476,10 +560,10 @@ def _entry(name: str):
 
 
 def resources(lib: ctypes.CDLL, name: str, n: int, slots: int) -> dict[str, int]:
-    """What kernel ``name`` of ``lib`` uses on the current card for a code of
-    n variables and ``slots`` message slots: registers and local (spill)
-    bytes per thread, shared bytes per block and blocks resident per SM,
-    from the CUDA runtime."""
+    """What kernel ``name`` (the stem of its source) of ``lib`` uses on the
+    current card for a code of n variables and ``slots`` message slots:
+    registers and local (spill) bytes per thread, shared bytes per block and
+    blocks resident per SM, from the CUDA runtime."""
     fn = getattr(lib, f"ria_{name}_resources")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -499,13 +583,17 @@ def _library_for(libraries: dict[str, str], precision: str) -> str:
 
 
 def k1_resources(n: int, slots: int, precision: str = "f32") -> dict[str, int]:
-    """:func:`resources` of K1's build of ``precision``."""
-    return resources(_library(_library_for(K1_LIBRARY, precision)), "ldpc_bp", n, slots)
+    """:func:`resources` of K1's build of ``precision`` (``slots`` of its
+    tables)."""
+    lib = _library_for(K1_LIBRARY, precision)
+    return resources(_library(lib), LIBRARIES[lib][0].stem, n, slots)
 
 
 def k2_resources(n: int, slots: int, precision: str = "f32") -> dict[str, int]:
-    """:func:`resources` of K2's build of ``precision``."""
-    return resources(_library(_library_for(K2_LIBRARY, precision)), "ldpc_bp_v1", n, slots)
+    """:func:`resources` of K2's build of ``precision`` (``slots`` of its
+    tables)."""
+    lib = _library_for(K2_LIBRARY, precision)
+    return resources(_library(lib), LIBRARIES[lib][0].stem, n, slots)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -528,12 +616,14 @@ def bp_decode(llrs: torch.Tensor, factors: torch.Tensor, tables: K1Tables,
     ``tables`` (:func:`k1_tables`).  Outputs: info_bits [B, k] uint8,
     success [B] bool, iterations [B] int32, llr_total [B, n] f32.
     ``precision`` picks the build: ``"f32"`` (counted in ``LAUNCHES``) or
-    ``"bf16"``, bfloat16 operands (``LAUNCHES_BF16``).
+    ``"bf16"``, bfloat16 operands (``LAUNCHES_BF16``); ``tables`` must be
+    that build's.
     """
     global LAUNCHES, LAUNCHES_BF16
     lib = _library_for(K1_LIBRARY, precision)
     name = "K1" if precision == "f32" else "K1 bf16"
-    out, launched = launch(lambda: _entry(lib), name, llrs, factors, tables, k, max_iters)
+    out, launched = launch(lambda: _entry(lib), name, llrs, factors, tables, k, max_iters,
+                           precision)
     with _COUNT_LOCK:
         if precision == "f32":
             LAUNCHES += launched
@@ -549,12 +639,13 @@ def bp_decode_v1(llrs: torch.Tensor, factors: torch.Tensor, tables: K2Tables,
     Arguments and outputs as :func:`bp_decode`, with K2's tables
     (:func:`k2_tables`).  ``precision`` picks the build: ``"f32"`` (counted
     in ``LAUNCHES_V1``) or ``"bf16"``, the TPU kernel's bfloat16 operands
-    and factor (``LAUNCHES_V1_BF16``).
+    and factor (``LAUNCHES_V1_BF16``); ``tables`` must be that build's.
     """
     global LAUNCHES_V1, LAUNCHES_V1_BF16
     lib = _library_for(K2_LIBRARY, precision)
     name = "K2" if precision == "f32" else "K2 bf16"
-    out, launched = launch(lambda: _entry(lib), name, llrs, factors, tables, k, max_iters)
+    out, launched = launch(lambda: _entry(lib), name, llrs, factors, tables, k, max_iters,
+                           precision)
     with _COUNT_LOCK:
         if precision == "f32":
             LAUNCHES_V1 += launched
@@ -564,12 +655,16 @@ def bp_decode_v1(llrs: torch.Tensor, factors: torch.Tensor, tables: K2Tables,
 
 
 def launch(entry, kernel: str, llrs: torch.Tensor, factors: torch.Tensor,
-           tables: K1Tables | K2Tables, k: int, max_iters: int):
-    """Check ``llrs`` and ``factors`` and launch the C entry point that
-    ``entry()`` returns (:func:`entry_point`; asked for only once the inputs
-    passed, so a CPU tensor raises before anything is built) on them with
-    ``tables``.  Returns the outputs and the number of launches (0 for an
-    empty batch).  Counts nothing: the wrappers of the port's kernels do."""
+           tables: K1Tables | K2Tables, k: int, max_iters: int, precision: str):
+    """Check ``llrs``, ``factors`` and that ``tables`` are those of the
+    ``precision`` build, and launch the C entry point that ``entry()``
+    returns (:func:`entry_point`; asked for only once the inputs passed, so
+    a CPU tensor raises before anything is built) on them with ``tables``.
+    Returns the outputs and the number of launches (0 for an empty batch).
+    Counts nothing: the wrappers of the port's kernels do."""
+    if tables.precision != precision:
+        raise ValueError(f"{kernel}: tables built for precision {tables.precision!r}, "
+                         f"not the {precision!r} build's")
     if llrs.device.type != "cuda":
         raise ValueError(f"{kernel} takes CUDA tensors, got {llrs.device}")
     dev = tables.row.device

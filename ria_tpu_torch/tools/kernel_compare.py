@@ -6,22 +6,40 @@ Run from the root of a checkout, on a CUDA host:
     python -m ria_tpu_torch.tools.kernel_compare --kernel k1 build/ldpc_bp_before.cu
     git show <commit>:ria_tpu_torch/csrc/ldpc_bp_v1.cu > build/ldpc_bp_v1_before.cu
     python -m ria_tpu_torch.tools.kernel_compare --kernel k2 build/ldpc_bp_v1_before.cu
+    python -m ria_tpu_torch.tools.kernel_compare --kernel k1 --interface tables \
+        --precision bf16 build/ldpc_bp_before.cu
 
-The earlier source has the interface both kernels had before they took
-their packed tables: C entry point ``ria_ldpc_bp_decode`` (k1) or
-``ria_ldpc_bp_v1_decode`` (k2) ``(llr, factors, row_idx, row_mask, a, b,
-llr_out, info_out, ok_out, iters_out, B, n, m, k, D, max_iters, stream)``
-with ``row_idx`` int32 and ``row_mask`` bool [m, D], and ``a``/``b`` int32:
-``col_ptr``/``col_edge`` from ``ldpc_kernel.csc_tables`` for k1,
-``slot_ptr``/``slot_chk`` from ``ldpc_kernel.slot_tables`` for k2.  That is
-``ria_tpu_torch/csrc/ldpc_bp.cu`` and ``ldpc_bp_v1.cu`` at commit 5fb6243.
+The earlier source has one of two interfaces.  ``--interface lists`` (the
+default) is the one both kernels had before they took their packed tables:
+C entry point ``ria_ldpc_bp_decode`` (k1) or ``ria_ldpc_bp_v1_decode`` (k2)
+``(llr, factors, row_idx, row_mask, a, b, llr_out, info_out, ok_out,
+iters_out, B, n, m, k, D, max_iters, stream)`` with ``row_idx`` int32 and
+``row_mask`` bool [m, D], and ``a``/``b`` int32: ``col_ptr``/``col_edge``
+from ``ldpc_kernel.csc_tables`` for k1, ``slot_ptr``/``slot_chk`` from
+``ldpc_kernel.slot_tables`` for k2.  That is ``ria_tpu_torch/csrc/ldpc_bp.cu``
+and ``ldpc_bp_v1.cu`` at commit 5fb6243.  ``--interface tables`` is today's
+(the same names, taking the float32 tables of ``ldpc_kernel.k1_layout`` or
+``k2_layout``), that of those files from commit 24697e0 (k1) or 71b0fa9
+(k2) on.
+
+``--precision bf16`` holds the bf16 builds: the earlier source built with
+``-DRIA_BF16_OPERANDS`` on the float32 tables, as K1's and K2's bf16
+builds were made up to commit 137700e (it needs ``--interface tables``),
+against the checkout's bf16 source
+(``ldpc_kernel.K1_LIBRARY["bf16"]`` or ``K2_LIBRARY["bf16"]``) on its own
+tables.  Each computes the plain bf16 decoder, so the two must agree bit
+for bit.
 
 The later kernel is the checkout's.  ``--define NAME=VALUE`` (repeatable)
 builds it with those macros, in a library of its own: the ``K2_*``
 switches of ``csrc/ldpc_bp_v1.cu`` each turn one lever of its design off.
 Every library is built with the flags of ``ldpc_kernel.build`` (ptxas'
-resource lines are printed), and the later kernel's registers, spill,
-shared bytes and blocks per SM as the CUDA runtime reports them.
+resource lines are printed), and each kernel's registers, spill, shared
+bytes and blocks per SM as the CUDA runtime reports them (the earlier one's
+where its library has the entry point).  Where the toolkit has
+``cuobjdump``, it prints whether the two libraries' SASS is the same,
+instruction for instruction (the kernels' names aside): an unchanged
+source's builds are.
 
 Both kernels decode the same LLRs, at the rate's iteration count and the
 per-row factor ladder of ``chip_smoke.py``: every rate at B = 8 and 256, the
@@ -41,6 +59,9 @@ from __future__ import annotations
 import argparse
 import ctypes
 import json
+import re
+import shutil
+import subprocess
 import sys
 from pathlib import Path
 
@@ -55,12 +76,16 @@ from ria_tpu_torch.utils.timing import kernel_us
 
 FACTORS = np.array([0.9375, 0.875, 0.75, 0.625, 0.5], np.float32)
 SIGMA = {"R1_4": 2.4, "R1_2": 1.8, "R2_3": 1.5, "R3_4": 1.4, "R5_6": 1.4}
-# Per kernel (also the attribute of LDPCDecoder that holds its tables): its
-# name in ldpc_kernel, its source, and the earlier interface's host lists.
+# Per kernel (also the attribute of LDPCDecoder that holds its tables): the
+# stem of its earlier source's entry points, its libraries by precision, and
+# the earlier list interface's host lists.
 KERNELS = {
-    "k1": ("ldpc_bp", ldpc_kernel._SOURCE, ldpc_kernel.csc_tables),
-    "k2": ("ldpc_bp_v1", ldpc_kernel._SOURCE_V1, ldpc_kernel.slot_tables),
+    "k1": ("ldpc_bp", ldpc_kernel.K1_LIBRARY, ldpc_kernel.csc_tables),
+    "k2": ("ldpc_bp_v1", ldpc_kernel.K2_LIBRARY, ldpc_kernel.slot_tables),
 }
+INTERFACES = ("lists", "tables")
+# What the earlier source is built with, by precision.
+BEFORE_DEFINES = {"f32": (), "bf16": ("-DRIA_BF16_OPERANDS",)}
 
 
 def _print_ptxas(tag: str, b: ldpc_kernel.Build) -> None:
@@ -71,8 +96,13 @@ def _print_ptxas(tag: str, b: ldpc_kernel.Build) -> None:
             print(f"  ptxas: {line.strip()}")
 
 
-def _before_decoder(lib: ctypes.CDLL, kernel: str, rate: str, dev: torch.device):
+def _before_decoder(lib: ctypes.CDLL, kernel: str, interface: str, rate: str,
+                    dev: torch.device):
+    """The earlier kernel of ``lib`` on ``rate``: through its list interface,
+    or through today's on the float32 tables."""
     name, _, lists = KERNELS[kernel]
+    if interface == "tables":
+        return _table_decoder(ldpc_kernel.entry_point(lib, name), kernel, rate, "f32", dev)
     fn = getattr(lib, f"ria_{name}_decode")
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -94,14 +124,15 @@ def _before_decoder(lib: ctypes.CDLL, kernel: str, rate: str, dev: torch.device)
     return decode
 
 
-def _after_decoder(lib: ctypes.CDLL, kernel: str, rate: str, dev: torch.device):
-    fn = ldpc_kernel.entry_point(lib, KERNELS[kernel][0])
-    dec = ldpc_decoder(rate, None, dev)
+def _table_decoder(fn, kernel: str, rate: str, precision: str, dev: torch.device):
+    """A kernel of today's interface, its C entry point ``fn``, on the tables
+    of ``precision``."""
+    dec = ldpc_decoder(rate, None, dev, precision)
     tables = getattr(dec, kernel)
 
     def decode(x: torch.Tensor, f: torch.Tensor) -> DecodeResult:
         return DecodeResult(*ldpc_kernel.launch(lambda: fn, kernel.upper(), x, f, tables,
-                                                dec.k, dec.max_iters)[0])
+                                                dec.k, dec.max_iters, precision)[0])
 
     return decode
 
@@ -124,29 +155,79 @@ def _differing(a: DecodeResult, b: DecodeResult) -> tuple[int, float]:
     return int(bad.sum()), float(diff.max())
 
 
+def sass(path: Path) -> list[str] | None:
+    """The SASS instructions of a library (``cuobjdump -sass``), without its
+    functions' names; None where the toolkit has no cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    tool = Path(CUDA_HOME or "/nonexistent", "bin", "cuobjdump")
+    tool = str(tool) if tool.exists() else shutil.which("cuobjdump")
+    if not tool:
+        return None
+    out = subprocess.run([tool, "-sass", str(path)], capture_output=True, text=True,
+                         check=True).stdout
+    return instructions(out)
+
+
+def instructions(listing: str) -> list[str]:
+    """The instruction lines (``/*0000*/ ...``) of a ``cuobjdump -sass``
+    listing, stripped."""
+    return [line.strip() for line in listing.splitlines()
+            if re.match(r"\s*/\*[0-9a-f]{4}\*/", line)]
+
+
 def _parse(argv) -> argparse.Namespace:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernel", required=True, choices=sorted(KERNELS))
+    ap.add_argument("--interface", choices=INTERFACES, default="lists",
+                    help="the earlier source's: 5fb6243's lists (default) or today's tables")
+    ap.add_argument("--precision", choices=tuple(BEFORE_DEFINES), default="f32",
+                    help="the builds compared: float32 (default) or bf16")
     ap.add_argument("--define", action="append", default=[], metavar="NAME=VALUE",
                     help="a macro for the checkout's kernel (repeatable)")
     ap.add_argument("before", type=Path, help="the earlier source")
-    return ap.parse_args(argv)
+    args = ap.parse_args(argv)
+    if args.precision == "bf16" and args.interface != "tables":
+        ap.error("--precision bf16 needs --interface tables (the list interface had no "
+                 "bf16 build)")
+    return args
 
 
 def run(argv=None) -> int:
     args = _parse(sys.argv[1:] if argv is None else argv)
-    kernel = args.kernel
-    name, source, _ = KERNELS[kernel]
-    defines = tuple(f"-D{d}" for d in args.define)
+    kernel, precision = args.kernel, args.precision
+    name, libraries, _ = KERNELS[kernel]
+    source, defines = ldpc_kernel.LIBRARIES[libraries[precision]]
+    defines = (*defines, *(f"-D{d}" for d in args.define))
+    after_name = source.stem
     dev = torch.device("cuda", 0)
-    builds = ldpc_kernel.compile_libraries({"before": (args.before, ()),
+    builds = ldpc_kernel.compile_libraries({"before": (args.before, BEFORE_DEFINES[precision]),
                                             "after": (source, defines)})
     for tag, b in builds.items():
         _print_ptxas(tag, b)
     lib_before, lib_after = (ctypes.CDLL(str(builds[t].path)) for t in ("before", "after"))
     dec = ldpc_decoder("R1_4", None, dev)
-    res = ldpc_kernel.resources(lib_after, name, dec.n, getattr(dec, kernel).slots)
-    print(f"{kernel} {' '.join(defines) or '(as built)'} at R1_4: {res}")
+    dec_after = ldpc_decoder("R1_4", None, dev, precision)
+    res = {"after": ldpc_kernel.resources(lib_after, after_name, dec.n,
+                                          getattr(dec_after, kernel).slots)}
+    if hasattr(lib_before, f"ria_{name}_resources"):
+        res["before"] = ldpc_kernel.resources(lib_before, name, dec.n,
+                                              getattr(dec, kernel).slots)
+    for which, r in res.items():
+        built = " ".join(defines) if which == "after" and defines else "(as built)"
+        print(f"{kernel} {precision} {which} {built} at R1_4: {r}")
+    listings = [sass(builds[t].path) for t in ("before", "after")]
+    same_sass = None if None in listings else listings[0] == listings[1]
+    if same_sass is not None:
+        print(f"SASS of the two libraries: {'identical' if same_sass else 'different'} "
+              f"({len(listings[0])} and {len(listings[1])} instructions)")
+
+    def before_decoder(rate):
+        return _before_decoder(lib_before, kernel, args.interface, rate, dev)
+
+    def after_decoder(rate):
+        return _table_decoder(ldpc_kernel.entry_point(lib_after, after_name), kernel, rate,
+                              precision, dev)
 
     rng = np.random.default_rng(1234)
     batches = []
@@ -159,8 +240,8 @@ def run(argv=None) -> int:
     total = 0
     for tag, rate, llr, fac in batches:
         x, f = torch.as_tensor(llr, device=dev), torch.as_tensor(fac, device=dev)
-        before = _before_decoder(lib_before, kernel, rate, dev)(x, f)
-        after = _after_decoder(lib_after, kernel, rate, dev)(x, f)
+        before = before_decoder(rate)(x, f)
+        after = after_decoder(rate)(x, f)
         torch.cuda.synchronize()
         n_bad, err = _differing(before, after)
         total += n_bad
@@ -170,21 +251,21 @@ def run(argv=None) -> int:
 
     x_ab = torch.as_tensor(ab, device=dev)
     f_ab = torch.full((512,), 0.75, device=dev)
-    ab_after = _after_decoder(lib_after, kernel, "R1_4", dev)(x_ab, f_ab)
+    ab_after = after_decoder("R1_4")(x_ab, f_ab)
     row = int(torch.nonzero((ab_after.iterations == 50) & ~ab_after.success)[0])
     main = torch.as_tensor(ldpc_bench.make_llrs("R1_4", 256, 10.0)[1], device=dev)
-    symbol = f"{name}_kernel"
+    symbols = {"before": f"{name}_kernel", "after": f"{after_name}_kernel"}
     times = {}
     for tag, x in (("R1_4 B=256 10 dB", main), ("R1_4 B=512 A/B -1 dB", x_ab),
                    (f"serial floor B=1 A/B row {row}", x_ab[row : row + 1])):
         f = torch.full((x.shape[0],), 0.75, device=dev)
-        fns = {"before": (lambda d=_before_decoder(lib_before, kernel, "R1_4", dev): d(x, f)),
-               "after": (lambda d=_after_decoder(lib_after, kernel, "R1_4", dev): d(x, f))}
+        fns = {"before": (lambda d=before_decoder("R1_4"): d(x, f)),
+               "after": (lambda d=after_decoder("R1_4"): d(x, f))}
         for fn in fns.values():
             for _ in range(3):
                 fn()
         iters = float(fns["after"]().iterations.float().mean())
-        us = [(which, kernel_us(fns[which], symbol)[0])
+        us = [(which, kernel_us(fns[which], symbols[which])[0])
               for which in ("before", "after", "after", "before")]
         b = [t for which, t in us if which == "before"]
         a = [t for which, t in us if which == "after"]
@@ -192,9 +273,10 @@ def run(argv=None) -> int:
         print(f"{tag} (mean iterations {iters:.2f}): device us per launch, in turns: "
               + ", ".join(f"{which} {t:.2f}" for which, t in us)
               + f"; after/before {sum(a) / sum(b):.4f}")
-    print(json.dumps({"kernel": kernel, "defines": list(args.define), "rows_differing": total,
-                      "resources": res, "device": torch.cuda.get_device_name(0),
-                      "device_us": times}))
+    print(json.dumps({"kernel": kernel, "precision": precision, "interface": args.interface,
+                      "defines": list(args.define), "rows_differing": total,
+                      "resources": res, "sass_identical": same_sass,
+                      "device": torch.cuda.get_device_name(0), "device_us": times}))
     return 1 if total else 0
 
 

@@ -394,17 +394,29 @@ def _mixed_llrs(rate, B, seed):
     return llr + noise
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("rate,B,kind", [(r, b, "near") for r in CODE_PARAMS for b in (8, 256)]
-                         + [("R1_4", 512, "mixed")])
-def test_k1_bf16_equals_plain_bf16_bit_for_bit(rate, B, kind, cuda_device):
-    """K1's bf16-operand build, counted in ``LAUNCHES_BF16`` alone, against
-    the plain decoder's ``precision="bf16"`` on the card and on the CPU:
-    every output of every row equal, converged or not; and not the float32
-    build's posteriors."""
+def _bf16_case(rate, B, kind):
+    """(LLRs, factors, iterations) of a bf16 card case: near the threshold,
+    bench.py's mixed batch, the A/B point (``ldpc_bench``: R1/4, B = 512,
+    -1 dB, factor 0.75, 50 iterations) or per-row factors off bfloat16's
+    grid."""
+    if kind == "ab":
+        return ldpc_bench.make_llrs(rate, B, -1.0)[1], np.full(B, 0.75, np.float32), 50
     iters = 50 if kind == "mixed" else 80
     llr = _mixed_llrs(rate, B, 5) if kind == "mixed" else _llrs(rate, B, 3.0, seed=13)
-    fac = np.resize(LADDER, B)
+    grid = np.float32([0.7, 0.8, 0.9, 0.6]) if kind == "off_grid" else LADDER
+    return llr, np.resize(grid, B), iters
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate,B,kind", [(r, b, "near") for r in CODE_PARAMS for b in (8, 256)]
+                         + [("R1_4", 512, "mixed"), ("R1_4", 512, "ab")])
+def test_k1_bf16_equals_plain_bf16_bit_for_bit(rate, B, kind, cuda_device):
+    """K1's bf16 build (csrc/ldpc_bp_bf16.cu), counted in ``LAUNCHES_BF16``
+    alone, against the plain decoder's ``precision="bf16"`` on the card and
+    on the CPU: every output of every row equal, converged or not, at every
+    rate, on bench.py's mixed batch and at the A/B point; and not the
+    float32 build's posteriors."""
+    llr, fac, iters = _bf16_case(rate, B, kind)
     x, f = torch.as_tensor(llr, device=cuda_device), torch.as_tensor(fac, device=cuda_device)
     dec = ldpc_decoder(rate, iters, cuda_device, "bf16")
     before = (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_BF16)
@@ -432,18 +444,17 @@ def test_make_decoder_bf16_launches_the_bf16_build(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rate,B,kind", [(r, b, "near") for r in CODE_PARAMS for b in (8, 256)]
-                         + [("R1_4", 512, "mixed"), ("R1_4", 256, "off_grid"),
-                            ("R1_2", 64, "off_grid")])
+                         + [("R1_4", 512, "mixed"), ("R1_4", 512, "ab"),
+                            ("R1_4", 256, "off_grid"), ("R1_2", 64, "off_grid")])
 def test_k2_bf16_equals_plain_v1_bf16_bit_for_bit(rate, B, kind, cuda_device):
-    """K2's bf16-operand build, counted in ``LAUNCHES_V1_BF16`` alone, against
-    ``plain_v1``'s ``precision="bf16"`` on the card and on the CPU: every
-    output of every row equal, converged or not; and not the float32
-    build's posteriors.  ``off_grid`` takes per-row factors 0.7, 0.8, 0.9
-    and 0.6, which the bf16 build rounds (the ladder's are exact)."""
-    iters = 50 if kind == "mixed" else 80
-    llr = _mixed_llrs(rate, B, 5) if kind == "mixed" else _llrs(rate, B, 3.0, seed=13)
-    grid = np.float32([0.7, 0.8, 0.9, 0.6]) if kind == "off_grid" else LADDER
-    fac = np.resize(grid, B)
+    """K2's bf16 build (csrc/ldpc_bp_v1_bf16.cu), counted in
+    ``LAUNCHES_V1_BF16`` alone, against ``plain_v1``'s ``precision="bf16"``
+    on the card and on the CPU: every output of every row equal, converged
+    or not, at every rate, on bench.py's mixed batch and at the A/B point;
+    and not the float32 build's posteriors.  ``off_grid`` takes per-row
+    factors 0.7, 0.8, 0.9 and 0.6, which the bf16 build rounds (the
+    ladder's are exact)."""
+    llr, fac, iters = _bf16_case(rate, B, kind)
     x, f = torch.as_tensor(llr, device=cuda_device), torch.as_tensor(fac, device=cuda_device)
     dec = ldpc_decoder(rate, iters, cuda_device, "bf16")
     counts = ("LAUNCHES", "LAUNCHES_BF16", "LAUNCHES_V1", "LAUNCHES_V1_BF16")
@@ -457,6 +468,8 @@ def test_k2_bf16_equals_plain_v1_bf16_bit_for_bit(rate, B, kind, cuda_device):
     assert not torch.equal(f32.llr_total, got.llr_total)
     if kind != "near":  # near the threshold no row of R2/3-R5/6 at B = 8 converges
         assert got.success.any()
+    if kind == "ab":  # rows that run all 50 iterations
+        assert (~got.success).any() and int(got.iterations.max()) == 50
 
 
 @pytest.mark.cuda
@@ -489,24 +502,56 @@ def test_make_cuda_decoder_v1_bf16_launches_the_bf16_build(cuda_device):
     _assert_equal(got, want)
 
 
-@pytest.mark.cuda
-def test_k2_bf16_resources_hold_the_ab_batch(cuda_device):
-    """The bf16 build: no spill, at most 32 registers, and every codeword
-    of the A/B point (512) resident at once."""
-    dec = ldpc_decoder("R1_4", 50, cuda_device)
-    res = ldpc_kernel.k2_resources(dec.n, dec.k2.slots, "bf16")
+def _assert_holds_the_ab_batch(res, cuda_device):
     sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
     assert res["local_bytes"] == 0 and res["registers"] <= 32
     assert res["blocks_per_sm"] * sms >= 512
 
 
 @pytest.mark.cuda
+def test_k2_bf16_resources_hold_the_ab_batch(cuda_device):
+    """The bf16 build on its own tables: no spill, at most 32 registers, and
+    every codeword of the A/B point (512) resident at once."""
+    dec = ldpc_decoder("R1_4", 50, cuda_device, "bf16")
+    _assert_holds_the_ab_batch(ldpc_kernel.k2_resources(dec.n, dec.k2.slots, "bf16"),
+                               cuda_device)
+
+
+@pytest.mark.cuda
+def test_k1_bf16_resources_hold_the_ab_batch(cuda_device):
+    """K1's bf16 build on its own tables, as K2's."""
+    dec = ldpc_decoder("R1_4", 50, cuda_device, "bf16")
+    _assert_holds_the_ab_batch(ldpc_kernel.k1_resources(dec.n, dec.k1.slots, "bf16"),
+                               cuda_device)
+
+
+@pytest.mark.cuda
 def test_k2_bf16_library_is_built_from_its_source_and_defines(cuda_device):
-    """The bf16 build is K2's source with -DRIA_BF16_OPERANDS, in a library
-    of its own whose name carries both."""
+    """Each bf16 build is a source of its own (csrc/ldpc_bp_v1_bf16.cu,
+    csrc/ldpc_bp_bf16.cu), in a library of its own whose name carries it."""
     builds = ldpc_kernel.build()
-    src, defines = ldpc_kernel.LIBRARIES["ldpc_bp_v1_bf16"]
-    assert src == ldpc_kernel._SOURCE_V1 and defines == ("-DRIA_BF16_OPERANDS",)
-    assert builds["ldpc_bp_v1_bf16"].path == ldpc_kernel.library_path(src, defines)
-    assert builds["ldpc_bp_v1_bf16"].path != builds["ldpc_bp_v1"].path
-    assert builds["ldpc_bp_v1_bf16"].path.exists()
+    for bf16, f32 in (("ldpc_bp_v1_bf16", "ldpc_bp_v1"), ("ldpc_bp_bf16", "ldpc_bp")):
+        src, defines = ldpc_kernel.LIBRARIES[bf16]
+        assert src.name == f"{bf16}.cu" and defines == ()
+        assert builds[bf16].path == ldpc_kernel.library_path(src, defines)
+        assert builds[bf16].path != builds[f32].path and builds[bf16].path.exists()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rate", ["R1_4", "R3_4"])
+def test_bf16_builds_zero_rows_and_zero_iterations(rate, cuda_device):
+    """The bf16 builds on all-zero rows (one iteration, every row converged)
+    and with no iteration (the channel LLRs, signed zeros kept), as K1's
+    float32 build; R3_4 has edgeless variables."""
+    x = torch.zeros((3, 648), device=cuda_device)
+    x[1, ::5] = -0.0
+    f = torch.full((3,), 0.75, device=cuda_device)
+    plain = ldpc_decoder(rate, 50, "cpu", "bf16")
+    for make, ref in ((make_cuda_decoder, plain.plain), (make_cuda_decoder_v1, plain.plain_v1)):
+        r = make(rate, 50, device=cuda_device, precision="bf16")(x, f)
+        assert r.success.all() and (r.iterations == 1).all()
+        want = ref(x.cpu(), f.cpu())
+        assert torch.equal(r.llr_total.cpu().view(torch.int32), want.llr_total.view(torch.int32))
+        r0 = make(rate, 0, device=cuda_device, precision="bf16")(x - 1.0, f)
+        assert not r0.success.any() and (r0.iterations == 0).all()
+        assert torch.equal(r0.llr_total, x - 1.0)

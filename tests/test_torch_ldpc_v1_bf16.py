@@ -135,12 +135,16 @@ def test_unknown_precision_raises():
 
 
 def test_k2_libraries_per_precision():
-    """K2 has a library for each precision, from one source: the bf16 one
-    built with -DRIA_BF16_OPERANDS, as K1's is."""
+    """K2 has a library for each precision, each from a source of its own
+    (the bf16 build a design of its own, csrc/ldpc_bp_v1_bf16.cu), as K1's
+    has."""
     assert ldpc_kernel.K2_LIBRARY == {"f32": "ldpc_bp_v1", "bf16": "ldpc_bp_v1_bf16"}
+    assert ldpc_kernel.K1_LIBRARY == {"f32": "ldpc_bp", "bf16": "ldpc_bp_bf16"}
     src, defines = ldpc_kernel.LIBRARIES["ldpc_bp_v1_bf16"]
-    assert src == ldpc_kernel.LIBRARIES["ldpc_bp_v1"][0] and defines == ("-DRIA_BF16_OPERANDS",)
-    f32 = ldpc_kernel.library_path(src)
+    f32_src, f32_defines = ldpc_kernel.LIBRARIES["ldpc_bp_v1"]
+    assert src.name == "ldpc_bp_v1_bf16.cu" and src.exists() and src != f32_src
+    assert defines == f32_defines == ()
+    f32 = ldpc_kernel.library_path(f32_src)
     bf16 = ldpc_kernel.library_path(src, defines)
-    assert bf16 != f32 and bf16.name.startswith("ldpc_bp_v1_") and bf16.parent == f32.parent
-    assert bf16 != ldpc_kernel.library_path(ldpc_kernel._SOURCE, defines)
+    assert bf16 != f32 and bf16.name.startswith("ldpc_bp_v1_bf16_") and bf16.parent == f32.parent
+    assert bf16 != ldpc_kernel.library_path(ldpc_kernel.LIBRARIES["ldpc_bp_bf16"][0])
