@@ -1,0 +1,5 @@
+"""Codewords of all calls completed in the window over its seconds."""
+
+
+def read(win):
+    return win.calls * win.work["codewords"] / win.seconds
