@@ -1,0 +1,10 @@
+"""Host ms a call inside the span ``rx.sync`` (the chirp or Schmidl-Cox
+search): its dispatch at the served pace, the median over the span's ring,
+which ends on the untraced window's calls."""
+
+from benchmark import spans
+
+
+def read(trace):
+    s = spans.host_median_s(trace, "rx.sync")
+    return None if s is None else s * 1e3

@@ -132,8 +132,8 @@ and raising on failure:
 4i. the stage profile (``ria_tpu_torch.tools.bench_profile``) at its own
    geometry (the chain-1 batch with every frame at lead 4,000): the
    reference tool's four rows (sync, demod, ldpc, full: ms and Msamp/s,
-   CUDA events), then one call of the chain split by its ``record_function``
-   spans (``rx.sync``, ``rx.demod``, ``rx.decode``: device ms and kernels
+   CUDA events), then one call of the chain split by its stage spans
+   (``utils/trace.span``: ``rx.sync``, ``rx.demod``, ``rx.decode``; device ms and kernels
    each; it fails unless they cover >= 95% of the call's device time); and
    the bf16 path: ``make_decoder(..., precision="bf16")`` on the profile's
    256 codewords with the counts zeroed, the bf16 build launched and the

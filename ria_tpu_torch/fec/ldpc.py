@@ -58,6 +58,7 @@ from ria_tpu_torch.fec.ldpc_matrix import (
 )
 from ria_tpu_torch.utils.bits import bits_to_bytes, bytes_to_bits
 from ria_tpu_torch.utils.device import resolve_device
+from ria_tpu_torch.utils.trace import span
 
 
 PRECISIONS = ("f32", "bf16")
@@ -334,8 +335,10 @@ def _slot_edges(row_idx: np.ndarray, row_mask: np.ndarray,
 @functools.lru_cache(maxsize=None)
 def ldpc_decoder(rate: str, max_iters: int | None = None,
                  device: str | torch.device = "cuda", precision: str = "f32") -> LDPCDecoder:
-    """Cached :class:`LDPCDecoder` for a rate and precision on a device."""
-    return LDPCDecoder(get_code(rate), max_iters, device, precision)
+    """Cached :class:`LDPCDecoder` for a rate and precision on a device;
+    each build is the span ``setup.ldpc_decoder``."""
+    with span("setup.ldpc_decoder"):
+        return LDPCDecoder(get_code(rate), max_iters, device, precision)
 
 
 def make_decoder_vf(rate: str, max_iters: int | None = None, precision: str = "f32",
@@ -386,11 +389,12 @@ def decode_batch(llrs, factors, rate: str, max_iters: int | None = None,
     decoder for the CPU -- the port of the backend gate of
     ``ria_tpu.fec.ldpc.decode_batch``.  A tensor keeps its device; a numpy
     array goes to ``device`` (default ``cuda``; pass ``device="cpu"`` for
-    the plain decoder on the host).
+    the plain decoder on the host).  A call is the span ``ldpc.decode_batch``.
     """
-    llrs = _on_device(llrs, device)
-    factors = torch.as_tensor(factors, dtype=torch.float32, device=llrs.device)
-    return ldpc_decoder(rate, max_iters, llrs.device)(llrs, factors)
+    with span("ldpc.decode_batch"):
+        llrs = _on_device(llrs, device)
+        factors = torch.as_tensor(factors, dtype=torch.float32, device=llrs.device)
+        return ldpc_decoder(rate, max_iters, llrs.device)(llrs, factors)
 
 
 def make_tile_decoder(rate: str, max_iters: int | None = None,

@@ -28,6 +28,7 @@ PyTorch decoders for CPU tensors are in ``ria_tpu_torch.fec.ldpc``.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -40,6 +41,8 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from ria_tpu_torch.utils.trace import span
 
 # Kernel launches since start-up (or since a caller last reset them).  Counted
 # only where each kernel is launched, so a run can show that it went through
@@ -538,7 +541,11 @@ _ARGS = {"ldpc_bp": (9, 8), "ldpc_bp_bf16": (9, 8), "ldpc_bp_v1": (9, 8),
 def _library(name: str) -> ctypes.CDLL:
     with _LOAD_LOCK:
         if name not in _LIBRARIES:
-            _LIBRARIES[name] = ctypes.CDLL(str(build()[name].path))
+            # The first load of a K1 build, with the compile of any missing
+            # library, is set-up: the span ``setup.k1_library``.
+            k1 = name in K1_LIBRARY.values()
+            with span("setup.k1_library") if k1 else contextlib.nullcontext():
+                _LIBRARIES[name] = ctypes.CDLL(str(build()[name].path))
         return _LIBRARIES[name]
 
 

@@ -10,10 +10,12 @@ runs as one batched program for B independent channels at once:
   frame and channel deinterleave as static gathers, batched LDPC BP.
 
 On a CUDA device the decoder is kernel K1 (``csrc/ldpc_bp.cu``).  Each RX
-call marks its three stages with ``torch.profiler.record_function`` spans,
-``rx.sync``, ``rx.demod`` (frame slice, demodulation, deinterleave) and
-``rx.decode``, so one profiled call splits by stage
-(``tools/bench_profile.py``).
+call marks its three stages with ``utils/trace.span`` spans, ``rx.sync``
+(with ``sync.coarse`` and ``sync.fine`` inside it, in the chirp zoom search
+and the Schmidl-Cox search), ``rx.demod`` (frame slice, demodulation,
+deinterleave) and ``rx.decode``: each keeps its recent host intervals, and
+a profiled call splits by stage (``tools/bench_profile.py``).  Building a
+pipeline is the span ``setup.rx_pipeline``.
 """
 
 from __future__ import annotations
@@ -23,13 +25,13 @@ from typing import NamedTuple
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ria_tpu_torch.fec.interleave import FRAME_CODEWORDS, channel_perm, frame_perm
 from ria_tpu_torch.fec.ldpc import LDPCDecoder, ldpc_decoder
 from ria_tpu_torch.fec.ldpc_matrix import RECOMMENDED_ITERS
 from ria_tpu_torch.sync.chirp import ChirpDetector, window_slice, generate as chirp_generate
 from ria_tpu_torch.utils.device import full_fp32_matmul, resolve_device
+from ria_tpu_torch.utils.trace import span
 from ria_tpu_torch.wave.mc_dpsk import (
     MCDPSKConfig,
     MCDPSKDemodulator,
@@ -89,26 +91,28 @@ class RxPipeline(nn.Module):
     def __init__(self, cfg: MCDPSKConfig, rate: str, num_codewords: int,
                  window_samples: int, min_sum_factor: float = 0.75,
                  device: str | torch.device = "cuda"):
-        super().__init__()
-        dev = resolve_device(device)
-        full_fp32_matmul()
-        self.cfg = cfg
-        self.num_codewords = num_codewords
-        self.window_samples = window_samples
-        self.min_sum_factor = min_sum_factor
-        self.num_bits = num_codewords * LDPC_BITS
-        n_sym = cfg.num_data_symbols(self.num_bits)
-        self.frame_need = (cfg.training_symbols + 1 + n_sym * cfg.spreading) * cfg.samples_per_symbol
-        self.sync = ChirpDetector(cfg.chirp, window_samples, dev)
-        self.demod = MCDPSKDemodulator(cfg, n_sym, dev)
-        self.decoder = _pick_decoder(rate, dev)
+        with span("setup.rx_pipeline"):
+            super().__init__()
+            dev = resolve_device(device)
+            full_fp32_matmul()
+            self.cfg = cfg
+            self.num_codewords = num_codewords
+            self.window_samples = window_samples
+            self.min_sum_factor = min_sum_factor
+            self.num_bits = num_codewords * LDPC_BITS
+            n_sym = cfg.num_data_symbols(self.num_bits)
+            self.frame_need = ((cfg.training_symbols + 1 + n_sym * cfg.spreading)
+                               * cfg.samples_per_symbol)
+            self.sync = ChirpDetector(cfg.chirp, window_samples, dev)
+            self.demod = MCDPSKDemodulator(cfg, n_sym, dev)
+            self.decoder = _pick_decoder(rate, dev)
 
     def soft_bits(self, audio: torch.Tensor):
         """Sync, frame slice and demodulation: (sync, demod, codeword LLRs
         [B * NCW, 648]), the decoder's input."""
-        with record_function("rx.sync"):
+        with span("rx.sync"):
             sync = self.sync(audio)
-        with record_function("rx.demod"):
+        with span("rx.demod"):
             # Frame slice, clamped into the window as jax.lax.dynamic_slice does.
             start = torch.clamp(sync.start + self.cfg.chirp.total_samples, 0,
                                 max(self.window_samples - self.frame_need, 0))
@@ -120,7 +124,7 @@ class RxPipeline(nn.Module):
     def forward(self, audio: torch.Tensor) -> RxBatchResult:
         B = audio.shape[0]
         sync, demod, soft = self.soft_bits(audio)
-        with record_function("rx.decode"):
+        with span("rx.decode"):
             factors = torch.full((soft.shape[0],), self.min_sum_factor, dtype=torch.float32,
                                  device=soft.device)
             dec = self.decoder(soft, factors)
@@ -172,28 +176,29 @@ class OFDMRxPipeline(nn.Module):
     def __init__(self, cfg: OFDMConfig, rate: str, window_samples: int,
                  ci_bits: int | None = None, min_sum_factor: float = 0.9375,
                  device: str | torch.device = "cuda"):
-        super().__init__()
-        dev = resolve_device(device)
-        full_fp32_matmul()
-        self.cfg = cfg
-        self.window_samples = window_samples
-        self.min_sum_factor = min_sum_factor
-        self.num_bits = FRAME_CODEWORDS * LDPC_BITS
-        S = cfg.num_symbols_for_bits(self.num_bits)
-        self.need = (2 + S) * cfg.symbol_samples
-        self.sync = SchmidlCoxDetector(cfg, window_samples, dev)
-        self.demod = OFDMDemodulator(cfg, S, 2, dev)
-        self.register_buffer("frame_idx", torch.as_tensor(frame_perm(), device=dev))
-        self.register_buffer("ci_idx", torch.as_tensor(channel_perm(ci_bits), device=dev)
-                             if ci_bits else None)
-        self.decoder = _pick_decoder(rate, dev)
+        with span("setup.rx_pipeline"):
+            super().__init__()
+            dev = resolve_device(device)
+            full_fp32_matmul()
+            self.cfg = cfg
+            self.window_samples = window_samples
+            self.min_sum_factor = min_sum_factor
+            self.num_bits = FRAME_CODEWORDS * LDPC_BITS
+            S = cfg.num_symbols_for_bits(self.num_bits)
+            self.need = (2 + S) * cfg.symbol_samples
+            self.sync = SchmidlCoxDetector(cfg, window_samples, dev)
+            self.demod = OFDMDemodulator(cfg, S, 2, dev)
+            self.register_buffer("frame_idx", torch.as_tensor(frame_perm(), device=dev))
+            self.register_buffer("ci_idx", torch.as_tensor(channel_perm(ci_bits), device=dev)
+                                 if ci_bits else None)
+            self.decoder = _pick_decoder(rate, dev)
 
     def soft_bits(self, audio: torch.Tensor):
         """Sync, frame slice, demodulation and deinterleave: (sync, demod,
         codeword LLRs [B * 4, 648]), the decoder's input."""
-        with record_function("rx.sync"):
+        with span("rx.sync"):
             sync = self.sync(audio)
-        with record_function("rx.demod"):
+        with span("rx.demod"):
             # Undetected channels slice from 0; the start is clamped into the
             # window as jax.lax.dynamic_slice does.
             start = torch.clamp(torch.where(sync.detected, sync.lts_start, 0), 0,
@@ -210,7 +215,7 @@ class OFDMRxPipeline(nn.Module):
     def forward(self, audio: torch.Tensor) -> OFDMRxBatchResult:
         B = audio.shape[0]
         sync, demod, soft = self.soft_bits(audio)
-        with record_function("rx.decode"):
+        with span("rx.decode"):
             factors = torch.full((soft.shape[0],), self.min_sum_factor, dtype=torch.float32,
                                  device=soft.device)
             dec = self.decoder(soft, factors)

@@ -33,6 +33,7 @@ import torch
 from torch import nn
 
 from ria_tpu_torch.utils.device import resolve_device, wide_cumsum
+from ria_tpu_torch.utils.trace import span
 
 
 @dataclass(frozen=True)
@@ -335,41 +336,47 @@ class ChirpDetector(nn.Module):
         nb = self.nfft // D
         nblk = n // D
         chirp_len = self.chirp_len
+        # The mix opens the search and the decision closes it outside the
+        # spans of its parts: a profiler ties each kernel to the innermost
+        # span alone, and the caller's ``rx.sync`` keeps a device-side range
+        # over the whole search only through kernels of its own.
         # Decimated complex baseband: mix by the band-center ramp and box-sum
         # groups of D samples; every transform after it is D times smaller.
         zb = (x[:, : nblk * D] * self.rot).reshape(B, nblk, D).sum(-1)
-        Z = torch.fft.fft(zb, nb)
-        env_up = torch.abs(torch.fft.ifft(Z * self.up_band))     # ~|c(mD)|
-        env_down = torch.abs(torch.fft.ifft(Z * self.down_band))
+        with span("sync.coarse"):
+            Z = torch.fft.fft(zb, nb)
+            env_up = torch.abs(torch.fft.ifft(Z * self.up_band))     # ~|c(mD)|
+            env_down = torch.abs(torch.fft.ifft(Z * self.down_band))
 
-        # Sliding window energy at the stride-D lags (exact for these lags).
-        num_lags = n - chirp_len
-        xb = x[:, : nblk * D]
-        blk = (xb * xb).reshape(B, nblk, D).sum(-1)
-        zero = torch.zeros((B, 1), dtype=x.dtype, device=x.device)
-        csum = torch.cat([zero, wide_cumsum(blk, dim=-1)], dim=-1)
-        idx = torch.arange(nb, dtype=torch.int32, device=x.device) * D
-        valid = idx < num_lags
-        idx_b = torch.clamp_max(idx // D, max(nblk - chirp_len // D - 1, 0)).long()
-        win = csum[:, idx_b + chirp_len // D] - csum[:, idx_b]
-        win_floor = 1e-6 * torch.amax(torch.where(valid, win, 0.0), dim=-1, keepdim=True)
-        inv = torch.rsqrt(torch.clamp_min(torch.maximum(win, win_floor) * self.energy, 1e-20))
+            # Sliding window energy at the stride-D lags (exact for these lags).
+            num_lags = n - chirp_len
+            xb = x[:, : nblk * D]
+            blk = (xb * xb).reshape(B, nblk, D).sum(-1)
+            zero = torch.zeros((B, 1), dtype=x.dtype, device=x.device)
+            csum = torch.cat([zero, wide_cumsum(blk, dim=-1)], dim=-1)
+            idx = torch.arange(nb, dtype=torch.int32, device=x.device) * D
+            valid = idx < num_lags
+            idx_b = torch.clamp_max(idx // D, max(nblk - chirp_len // D - 1, 0)).long()
+            win = csum[:, idx_b + chirp_len // D] - csum[:, idx_b]
+            win_floor = 1e-6 * torch.amax(torch.where(valid, win, 0.0), dim=-1, keepdim=True)
+            inv = torch.rsqrt(torch.clamp_min(torch.maximum(win, win_floor) * self.energy, 1e-20))
 
-        up_norm = env_up * inv
-        up_env = torch.where(valid, up_norm, -1.0)
-        up_coarse = torch.argmax(up_env, dim=-1).to(torch.int32) * D
-        up_pos, up_val = self._refine_peak(x, up_coarse, self.up_mr, self.up_mi)
-        # CFAR floor: median normalized correlation over the valid lags,
-        # which are a prefix of the grid (nanmedian in the reference).
-        n_valid = int(np.sum(np.arange(nb) * D < num_lags))
-        up_cfar = self._cfar(up_val, _median(up_norm[:, :n_valid]))
-        if not self.cfg.use_dual_chirp:
-            return self._decide(up_pos, up_val, up_cfar, None, None)
-
-        mask = valid & self._down_window(up_pos, idx)
-        down_env = torch.where(mask, env_down * inv, -1.0)
-        down_coarse = torch.argmax(down_env, dim=-1).to(torch.int32) * D
-        down_pos, down_val = self._refine_peak(x, down_coarse, self.down_mr, self.down_mi)
+            up_norm = env_up * inv
+            up_env = torch.where(valid, up_norm, -1.0)
+            up_coarse = torch.argmax(up_env, dim=-1).to(torch.int32) * D
+        with span("sync.fine"):
+            up_pos, up_val = self._refine_peak(x, up_coarse, self.up_mr, self.up_mi)
+            # CFAR floor: median normalized correlation over the valid lags,
+            # which are a prefix of the grid (nanmedian in the reference).
+            n_valid = int(np.sum(np.arange(nb) * D < num_lags))
+            up_cfar = self._cfar(up_val, _median(up_norm[:, :n_valid]))
+            down_pos = down_val = None
+            if self.cfg.use_dual_chirp:
+                mask = valid & self._down_window(up_pos, idx)
+                down_env = torch.where(mask, env_down * inv, -1.0)
+                down_coarse = torch.argmax(down_env, dim=-1).to(torch.int32) * D
+                down_pos, down_val = self._refine_peak(x, down_coarse, self.down_mr,
+                                                       self.down_mi)
         return self._decide(up_pos, up_val, up_cfar, down_pos, down_val)
 
 

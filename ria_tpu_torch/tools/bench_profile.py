@@ -10,9 +10,10 @@ reference's ``geometry:`` line and its four rows (ms and Msamp/s).
 
 Timing on separate runs does not tell how the stages share one call, so it
 then splits one call of the chain: ``RxPipeline.forward`` marks its stages
-with ``torch.profiler.record_function`` spans (``rx.sync``, ``rx.demod``,
-``rx.decode``), and one profiled call gives each span's device ms and
-kernel count and the share of the call's device time the three cover.
+with ``utils/trace.span`` spans (``rx.sync``, ``rx.demod``, ``rx.decode``),
+which enter ``torch.profiler.record_function`` while a profiler runs, and
+one profiled call gives each span's device ms and kernel count and the share
+of the call's device time the three cover.
 
 Runs on the card (``--device cuda``, the default; without a card it raises)
 or on the CPU (``--device cpu``, host clock, the spans' host ms).  Not part

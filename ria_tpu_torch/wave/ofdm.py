@@ -52,6 +52,7 @@ from ria_tpu_torch.dsp.hilbert import analytic_signal
 from ria_tpu_torch.sync.chirp import window_slice
 from ria_tpu_torch.utils.device import resolve_device, wide_cumsum
 from ria_tpu_torch.utils.mt19937 import MT19937
+from ria_tpu_torch.utils.trace import span
 
 PILOT_RNG_SEED = 0x50494C54
 MAX_LLR = 20.0
@@ -466,82 +467,87 @@ class SchmidlCoxDetector(nn.Module):
         sym = cfg.symbol_samples
         L = self.L
 
+        # The mix opens the search and the decision closes it outside the
+        # spans of its parts, as in ``ChirpDetector._zoom``: the caller's
+        # ``rx.sync`` keeps a device-side range over the whole search.
         # Coarse SC metric on the mixed, box-summed complex baseband.
         nblk = n // _SC_DEC
         zb = (x[:, : nblk * _SC_DEC] * self.rot).reshape(B, nblk, _SC_DEC).sum(-1)
-        half_d = half // _SC_DEC
-        zc_d = torch.conj(zb[:, :-half_d]) * zb[:, half_d:]
-        absz2_d = torch.square(torch.abs(zb))
-        P = _sliding(zc_d, half_d)
-        R1 = _sliding(absz2_d, half_d)
-        R2 = _sliding(absz2_d[:, half_d:], half_d)
-        m = min(P.shape[-1], R2.shape[-1])
-        P, R1, R2 = P[:, :m], R1[:, :m], R2[:, :m]
-        # -60 dB energy floor: silence holds only numeric residue, and
-        # dividing by its energy would mint false metric peaks.
-        rr = R1 * R2
-        rr_floor = 1e-6 * torch.amax(rr, dim=-1, keepdim=True)
-        M = torch.abs(P) / torch.sqrt(torch.clamp_min(torch.maximum(rr, rr_floor), 1e-20))
+        with span("sync.coarse"):
+            half_d = half // _SC_DEC
+            zc_d = torch.conj(zb[:, :-half_d]) * zb[:, half_d:]
+            absz2_d = torch.square(torch.abs(zb))
+            P = _sliding(zc_d, half_d)
+            R1 = _sliding(absz2_d, half_d)
+            R2 = _sliding(absz2_d[:, half_d:], half_d)
+            m = min(P.shape[-1], R2.shape[-1])
+            P, R1, R2 = P[:, :m], R1[:, :m], R2[:, :m]
+            # -60 dB energy floor: silence holds only numeric residue, and
+            # dividing by its energy would mint false metric peaks.
+            rr = R1 * R2
+            rr_floor = 1e-6 * torch.amax(rr, dim=-1, keepdim=True)
+            M = torch.abs(P) / torch.sqrt(torch.clamp_min(torch.maximum(rr, rr_floor), 1e-20))
 
-        # Offset d has data_start = d + cp -> decimated index (d + cp) / DEC.
-        cp_d = cfg.cp_len // _SC_DEC
-        num_lags = max(m - cp_d, 1)
-        Md = M[:, cp_d : cp_d + num_lags]
-        peak_d = torch.argmax(Md, dim=-1)
-        peak_val = _take(Md, peak_d)
-        peak = peak_d.to(torch.int32) * _SC_DEC
+            # Offset d has data_start = d + cp -> decimated index (d + cp) / DEC.
+            cp_d = cfg.cp_len // _SC_DEC
+            num_lags = max(m - cp_d, 1)
+            Md = M[:, cp_d : cp_d + num_lags]
+            peak_d = torch.argmax(Md, dim=-1)
+            peak_val = _take(Md, peak_d)
+            peak = peak_d.to(torch.int32) * _SC_DEC
 
-        # Coarse CFO at the peak; the mix leaves fc*half/fs turns in the
-        # lag-half product, whose fractional part is undone here.
-        frac_half = float((cfg.center_freq * half / cfg.sample_rate) % 1.0)
-        P_peak = _take(P[:, cp_d : cp_d + num_lags], peak_d) * complex(
-            np.exp(2j * np.pi * frac_half))
-        cfo = _rdiv(torch.angle(P_peak) * cfg.sample_rate, np.pi * N)
-        max_cfo = cfg.sample_rate / N
-        cfo = torch.clamp(cfo, -max_cfo, max_cfo)
+            # Coarse CFO at the peak; the mix leaves fc*half/fs turns in the
+            # lag-half product, whose fractional part is undone here.
+            frac_half = float((cfg.center_freq * half / cfg.sample_rate) % 1.0)
+            P_peak = _take(P[:, cp_d : cp_d + num_lags], peak_d) * complex(
+                np.exp(2j * np.pi * frac_half))
+            cfo = _rdiv(torch.angle(P_peak) * cfg.sample_rate, np.pi * N)
+            max_cfo = cfg.sample_rate / N
+            cfo = torch.clamp(cfo, -max_cfo, max_cfo)
 
-        # LTS fine timing: FFT cross-correlation in a slice around the
-        # expected LTS (peak + 4 symbols), normalized by the slice energy.
-        R = self.R
-        expected = peak + 4 * sym
-        lo = torch.clamp(expected - 4 * sym, 0, max(n - R, 0))
-        sl = window_slice(x, lo, R)
-        X = torch.fft.fft(sl.to(torch.complex64), self.nfft)
-        xc = torch.fft.ifft(X * self.lts_fft)[:, : R - L]
-        e = _sliding(torch.square(sl), L)[:, : xc.shape[-1]]
-        e_floor = 1e-6 * torch.amax(e, dim=-1, keepdim=True)
-        corr = torch.abs(xc) / torch.sqrt(
-            torch.clamp_min(torch.maximum(e, e_floor) * self.ref_energy, 1e-12))
+        with span("sync.fine"):
+            # LTS fine timing: FFT cross-correlation in a slice around the
+            # expected LTS (peak + 4 symbols), normalized by the slice energy.
+            R = self.R
+            expected = peak + 4 * sym
+            lo = torch.clamp(expected - 4 * sym, 0, max(n - R, 0))
+            sl = window_slice(x, lo, R)
+            X = torch.fft.fft(sl.to(torch.complex64), self.nfft)
+            xc = torch.fft.ifft(X * self.lts_fft)[:, : R - L]
+            e = _sliding(torch.square(sl), L)[:, : xc.shape[-1]]
+            e_floor = 1e-6 * torch.amax(e, dim=-1, keepdim=True)
+            corr = torch.abs(xc) / torch.sqrt(
+                torch.clamp_min(torch.maximum(e, e_floor) * self.ref_energy, 1e-12))
 
-        # Candidates: [expected - 3 sym, expected + sym/2] relative to lo.
-        lags = torch.arange(corr.shape[-1], dtype=torch.int32, device=x.device)
-        lo_rel = (expected - 4 * sym - lo)[:, None]
-        hi_rel = (expected + sym // 2 - lo)[:, None]
-        masked = torch.where((lags >= lo_rel) & (lags <= hi_rel), corr, -1.0)
-        pos_rel = torch.argmax(masked, dim=-1).to(torch.int32)
-        lts_val = _take(masked, pos_rel)
+            # Candidates: [expected - 3 sym, expected + sym/2] relative to lo.
+            lags = torch.arange(corr.shape[-1], dtype=torch.int32, device=x.device)
+            lo_rel = (expected - 4 * sym - lo)[:, None]
+            hi_rel = (expected + sym // 2 - lo)[:, None]
+            masked = torch.where((lags >= lo_rel) & (lags <= hi_rel), corr, -1.0)
+            pos_rel = torch.argmax(masked, dim=-1).to(torch.int32)
+            lts_val = _take(masked, pos_rel)
 
-        # Prefer the earlier of the two LTS repeats (92% rule).
-        prev_rel = torch.clamp_min(pos_rel - sym, 0)
-        prev_val = _take(corr, prev_rel)
-        take_prev = (pos_rel >= sym) & (prev_val >= lts_val * 0.92)
-        pos_rel = torch.where(take_prev, prev_rel, pos_rel)
-        lts_val = torch.where(take_prev, prev_val, lts_val)
-        lts_pos = lo + pos_rel
+            # Prefer the earlier of the two LTS repeats (92% rule).
+            prev_rel = torch.clamp_min(pos_rel - sym, 0)
+            prev_val = _take(corr, prev_rel)
+            take_prev = (pos_rel >= sym) & (prev_val >= lts_val * 0.92)
+            pos_rel = torch.where(take_prev, prev_rel, pos_rel)
+            lts_val = torch.where(take_prev, prev_val, lts_val)
+            lts_pos = lo + pos_rel
 
-        # Fine CFO from the LTS repeat pair on the analytic signal of the
-        # slice (the 2fc image would fold the pair product onto the real
-        # axis), wrap-resolved against the coarse SC estimate.
-        seg_len = sym + L
-        seg = window_slice(x, torch.clamp(lts_pos, 0, max(n - seg_len, 0)), seg_len)
-        segz = analytic_signal(seg)
-        r = torch.sum(segz[:, :L] * torch.conj(segz[:, sym : sym + L]), dim=-1)
-        frac_sym = float((cfg.center_freq * sym / cfg.sample_rate) % 1.0)
-        r = r * complex(np.exp(2j * np.pi * frac_sym))
-        spacing = cfg.sample_rate / sym
-        cfo_fine = _rdiv(-torch.angle(r) * spacing, 2.0 * np.pi)
-        k = torch.round(_rdiv(cfo - cfo_fine, spacing))
-        cfo = torch.where(torch.abs(r) > 1e-12, cfo_fine + k * spacing, cfo)
+            # Fine CFO from the LTS repeat pair on the analytic signal of the
+            # slice (the 2fc image would fold the pair product onto the real
+            # axis), wrap-resolved against the coarse SC estimate.
+            seg_len = sym + L
+            seg = window_slice(x, torch.clamp(lts_pos, 0, max(n - seg_len, 0)), seg_len)
+            segz = analytic_signal(seg)
+            r = torch.sum(segz[:, :L] * torch.conj(segz[:, sym : sym + L]), dim=-1)
+            frac_sym = float((cfg.center_freq * sym / cfg.sample_rate) % 1.0)
+            r = r * complex(np.exp(2j * np.pi * frac_sym))
+            spacing = cfg.sample_rate / sym
+            cfo_fine = _rdiv(-torch.angle(r) * spacing, 2.0 * np.pi)
+            k = torch.round(_rdiv(cfo - cfo_fine, spacing))
+            cfo = torch.where(torch.abs(r) > 1e-12, cfo_fine + k * spacing, cfo)
 
         lts_threshold = 0.05 if cfg.fft_size >= 1024 else 0.35
         detected = (peak_val > cfg.sync_threshold) & (lts_val > lts_threshold)
