@@ -24,10 +24,17 @@ and raising on failure:
    K1 in each precision (they group their sums otherwise: at most 1% of
    the mixed batch's rows may part); on the card, for every rate at B = 8
    and 256 and for R1/4 at B = 512 (mixed difficulty);
+3b. the chirp search's window pass (``csrc/zoom_front.cu``) against its
+   plain version (``sync.chirp.zoom_front_plain``) on the card, at the
+   benchmark cell's 256 channels of 207,328 samples and at B = 1: within
+   the order of a 16-term sum (the kernel adds in PyTorch's order, so no
+   group should differ), all-zero groups 0; its device µs beside its bound
+   from the bytes and the share of it, and the plain version's ms;
 4. main path: the MC-DPSK RX chain at the bench.py chain-1 geometry (64
    channels, window 207,328, R1/4, 4 codewords, 10 dB AWGN) from the port's
    own TX, checked against the transmitted bits and against the same chain
-   on the CPU, with K1's launch count from that run;
+   on the CPU, with K1's launch count from that run and exactly one launch
+   of the window pass;
 4b. OFDM chains: bench.py's chains 2 and 3 (north-star configs #3, DQPSK
    R1/2 at 15 dB, window 42,720, and #4, QAM64 R3/4 at 25 dB, window
    26,160; 64 channels each) from the port's own TX: all detected,
@@ -359,6 +366,64 @@ def top_kernels(stage: str, top: list[tuple[str, float]]) -> str:
         return ""
     return "; most device time: " + ", ".join(f"{name[:60]} {us / 1e3:.3f} ms"
                                               for name, us in top)
+
+
+# The window pass's tolerance against its plain version: what the order of a
+# 16-term float32 sum may move, 2 * 15 * 2**-24 of the terms' magnitudes
+# (tests/test_torch_chirp_cuda.py).
+ZOOM_ORDER_TOL = 2 * 15 * 2.0**-24
+
+
+def zoom_front_phase(card: str, dev: torch.device) -> dict:
+    """Phase 3b: the chirp search's window pass against its plain version
+    and timed, at the benchmark cell's shape (B = 256) and at B = 1; returns
+    its ``kernels`` entry."""
+    from ria_tpu_torch.sync import chirp, zoom_kernel
+    from ria_tpu_torch.utils.timing import cuda_ms, kernel_us
+
+    n = 207328
+    det = chirp.ChirpDetector(chirp.ChirpConfig(), n, dev)
+    D = 16
+    nb, nblk = det.nfft // D, n // D
+    rng = np.random.default_rng(23)
+    by_batch = {}
+    for B in (256, 1):
+        x = torch.as_tensor(rng.normal(0, 0.35, (B, n)).astype(np.float32), device=dev)
+        x[:, 16 * 300 : 16 * 340] = 0.0
+        zb, blk = zoom_kernel.zoom_front(x, det.rot, nb)
+        want_zb, want_blk = chirp.zoom_front_plain(x, det.rot, nb)
+        torch.cuda.synchronize()
+        xg = x[:, : nblk * D].double().reshape(B, nblk, D)
+        rot = det.rot.reshape(nblk, D)
+        differ = 0
+        for got, want, scale in (
+                (zb.real, want_zb.real, (xg * rot.real.double()).abs().sum(-1)),
+                (zb.imag, want_zb.imag, (xg * rot.imag.double()).abs().sum(-1)),
+                (blk, want_blk, (xg * xg).sum(-1))):
+            gap = (got[:, :nblk].double() - want[:, :nblk].double()).abs()
+            differ += int((gap > 0).sum())
+            if not bool((gap <= ZOOM_ORDER_TOL * scale).all()):
+                raise AssertionError(f"zoom_front differs from its plain version at B={B} "
+                                     "beyond the order of a 16-term sum")
+        if not (bool((zb[:, 300:340] == 0).all()) and bool((blk[:, 300:340] == 0).all())
+                and bool((zb[:, nblk:] == 0).all())):
+            raise AssertionError(f"zoom_front: an all-zero group or the padding is not 0 (B={B})")
+        io = 4 * B * n + 8 * B * nb + 4 * B * nblk + 8 * D * nblk
+        bound = io / HBM_BYTES_PER_S * 1e6
+        us, how = kernel_us(lambda: zoom_kernel.zoom_front(x, det.rot, nb), "zoom_front_kernel")
+        plain = cuda_ms(lambda: chirp.zoom_front_plain(x, det.rot, nb), reps=20)
+        log(f"[3b zoom_front] B={B} n={n}: values differing from the plain version {differ} "
+            f"of {3 * B * nblk}; {us:.2f} us per launch ({how}), bound {bound:.2f} us "
+            f"({io / 1e6:.3f} MB), {bound / us:.1%} of it; plain version {plain[0]:.4f} ms "
+            f"(min {plain[1]:.4f}, max {plain[2]:.4f}) ({card})")
+        by_batch[str(B)] = {"device_us": us, "bound_us": bound, "plain_ms": plain[0],
+                            "values_differing": differ}
+    main = by_batch["256"]
+    return {"name": "zoom_front", "route": "cuda", "source": "ria_tpu_torch/csrc/zoom_front.cu",
+            "replaces": None, "launches_per_call": 1, "device_us": main["device_us"],
+            "ms": main["device_us"] / 1e3, "plain_ms": main["plain_ms"],
+            "bound_us": main["bound_us"], "bound_ms": main["bound_us"] / 1e3,
+            "bound_by": "bytes", "library_ms": None, "by_batch": by_batch}
 
 
 def run_cli(argv: list[str]) -> tuple[int, str, str]:
@@ -1540,14 +1605,24 @@ def main() -> int:
             f"{float((got['K1 bf16'].llr_total - got['K1'].llr_total).abs().max()):.3g}, K2 "
             f"{float((got['K2 bf16'].llr_total - got['K2'].llr_total).abs().max()):.3g}")
 
+    # -- 3b. the chirp search's window pass -----------------------------------
+    zoom_entry = zoom_front_phase(card, dev)
+
     # -- 4. main path ---------------------------------------------------------
+    from ria_tpu_torch.sync import zoom_kernel
+
     cfg, ncw, batch, window = geometry(production=True)
     audio, info = _make_batch(cfg, ncw, batch, window, seed=0, production=True, device=dev)
     rx = make_rx_pipeline(cfg, RATE, ncw, window, device=dev)
     torch.cuda.synchronize()
     zero_counts()
+    zoom_before = zoom_kernel.LAUNCHES
     out = rx(audio)
     torch.cuda.synchronize()
+    if zoom_kernel.LAUNCHES - zoom_before != 1:
+        raise AssertionError(f"the main path launched the window pass "
+                             f"{zoom_kernel.LAUNCHES - zoom_before} times; 1 expected")
+    zoom_entry["launches"] = zoom_kernel.LAUNCHES - zoom_before
     launches = ldpc_kernel.LAUNCHES
     launches_v1_main = (ldpc_kernel.LAUNCHES_V1, ldpc_kernel.LAUNCHES_V1_BF16)
     det = out.detected.cpu().numpy()
@@ -2190,6 +2265,7 @@ def main() -> int:
     log(json.dumps({"rx_frame_ms_by_class": {name: t[0] for name, t in api_ms.items()},
                     "spectral_snr_ms_in_call_by_class": {name: t[3] for name, t in api_ms.items()},
                     "card": card}))
+    kernels.append(zoom_entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

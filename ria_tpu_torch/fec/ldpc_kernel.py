@@ -11,6 +11,11 @@
   rounding of its operands and its factor to bfloat16
   (``csrc/ldpc_bp_v1_bf16.cu``).
 
+The same build carries the chirp search's window pass
+(``csrc/zoom_front.cu``, bound by ``ria_tpu_torch/sync/zoom_kernel.py``
+through :func:`kernel`), so that one parallel ``nvcc`` run builds every
+kernel of the port.
+
 Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, on first use, under ``build/ria_tpu_torch/``
 at the root of the checkout; :func:`build` starts one ``nvcc`` per missing
@@ -73,13 +78,19 @@ _SOURCE_V1_BF16 = _CSRC / "ldpc_bp_v1_bf16.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ria_tpu_torch"
 _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Each library: (source, extra nvcc flags).  The C entry points are named
-# after the source (``ria_<stem>_decode``, ``ria_<stem>_resources``).
+# Each library: (source, extra nvcc flags).  The decoders' C entry points are
+# named after the source (``ria_<stem>_decode``, ``ria_<stem>_resources``),
+# the other kernels' ``ria_<stem>`` (:func:`kernel`).  ``zoom_front`` links
+# the shared CUDA runtime, the one PyTorch has loaded: the first kernel of a
+# chain call, it opens ``rx.sync``'s device-side range in a profile, and a
+# profile taken late in a process missed launches made through a runtime
+# linked into the library itself (torch 2.11, an NVIDIA H100).
 LIBRARIES = {
     "ldpc_bp": (_SOURCE, ()),
     "ldpc_bp_bf16": (_SOURCE_BF16, ()),
     "ldpc_bp_v1": (_SOURCE_V1, ()),
     "ldpc_bp_v1_bf16": (_SOURCE_V1_BF16, ()),
+    "zoom_front": (_CSRC / "zoom_front.cu", ("-cudart", "shared")),
 }
 # Each kernel's library for each precision.
 K1_LIBRARY = {"f32": "ldpc_bp", "bf16": "ldpc_bp_bf16"}
@@ -528,14 +539,14 @@ def _compile_missing(sources: dict[str, tuple[Path, tuple[str, ...]]]) -> dict[s
 def build() -> dict[str, Build]:
     """Compile every library of :data:`LIBRARIES` that is missing, all at
     once.  Returns ``{"ldpc_bp": ..., "ldpc_bp_bf16": ..., "ldpc_bp_v1": ...,
-    "ldpc_bp_v1_bf16": ...}``."""
+    "ldpc_bp_v1_bf16": ..., "zoom_front": ...}``."""
     return compile_libraries(dict(LIBRARIES))
 
 
 # Pointer and int arguments of each C entry point (then the stream), by the
 # stem of its source.
 _ARGS = {"ldpc_bp": (9, 8), "ldpc_bp_bf16": (9, 8), "ldpc_bp_v1": (9, 8),
-         "ldpc_bp_v1_bf16": (9, 8)}
+         "ldpc_bp_v1_bf16": (9, 8), "zoom_front": (4, 3)}
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -550,8 +561,20 @@ def _library(name: str) -> ctypes.CDLL:
 
 
 def entry_point(lib: ctypes.CDLL, name: str):
-    """Kernel ``name``'s C entry point in ``lib``, with its argument types."""
-    fn = getattr(lib, f"ria_{name}_decode")
+    """Decoder ``name``'s C entry point in ``lib``, with its argument types."""
+    return _typed(getattr(lib, f"ria_{name}_decode"), name)
+
+
+def kernel_entry_point(lib: ctypes.CDLL, name: str):
+    """The C entry point ``ria_<name>`` of a kernel that is not a decoder
+    (``zoom_front``) in ``lib``, with its argument types."""
+    return _typed(getattr(lib, f"ria_{name}"), name)
+
+
+def _typed(fn, name: str):
+    """``fn`` with the argument types of ``_ARGS[name]``: a pointer for each
+    pointer and for the stream, an int for each int; returns an int (the
+    launch's cudaError_t)."""
     ptrs, ints = _ARGS[name]
     fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -563,6 +586,17 @@ def _entry(name: str):
     with _LOAD_LOCK:
         if name not in _ENTRIES:
             _ENTRIES[name] = entry_point(lib, LIBRARIES[name][0].stem)
+        return _ENTRIES[name]
+
+
+def kernel(name: str):
+    """The C entry point of library ``name`` (a kernel that is not a decoder:
+    :func:`kernel_entry_point`), every missing library built and this one
+    loaded on the first call."""
+    lib = _library(name)
+    with _LOAD_LOCK:
+        if name not in _ENTRIES:
+            _ENTRIES[name] = kernel_entry_point(lib, name)
         return _ENTRIES[name]
 
 

@@ -19,7 +19,9 @@ sample resolution with a small matmul against shifted templates, which also
 gives the exact normalized correlation used for thresholding.  The numpy
 table builders are copied verbatim from the reference package, so the
 complex64 constants match bit for bit; the FFTs and the refinement matmuls
-are torch ops (cuFFT, cuBLAS on the card), as they were XLA ops there.
+are torch ops (cuFFT, cuBLAS on the card), as they were XLA ops there.  On
+the card the zoom branch's pass over the window (mix, box-sum and block
+energy) is one CUDA kernel (``csrc/zoom_front.cu``, :func:`zoom_front`).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ria_tpu_torch.sync import zoom_kernel
 from ria_tpu_torch.utils.device import resolve_device, wide_cumsum
 from ria_tpu_torch.utils.trace import span
 
@@ -168,6 +171,35 @@ def _zoom_tables(cfg: ChirpConfig, nfft: int):
     return up_band, down_band, energy, shift_mat(up_t), shift_mat(down_t)
 
 
+def zoom_front_plain(x: torch.Tensor, rot: torch.Tensor,
+                     nb: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The zoom branch's pass over the window in PyTorch, for x [B, n]
+    float32 and the mixing ramp rot [D (n // D)] complex64, D = _ZOOM_DECIM:
+
+    - zb [B, nb] complex64: the decimated complex baseband, each group of D
+      samples mixed by the band-centre ramp and box-summed, zero-padded from
+      n // D groups to the transform's nb points;
+    - blk [B, n // D] float32: each group's energy.
+    """
+    B, n = x.shape
+    D = _ZOOM_DECIM
+    nblk = n // D
+    zb = (x[:, : nblk * D] * rot).reshape(B, nblk, D).sum(-1)
+    xb = x[:, : nblk * D]
+    blk = (xb * xb).reshape(B, nblk, D).sum(-1)
+    return nn.functional.pad(zb, (0, nb - nblk)), blk
+
+
+def zoom_front(x: torch.Tensor, rot: torch.Tensor,
+               nb: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`zoom_front_plain`'s (zb, blk): on the CPU by it, on the card
+    by the CUDA kernel (``sync/zoom_kernel.py``), which raises on a tensor
+    it does not take."""
+    if x.device.type == "cpu":
+        return zoom_front_plain(x, rot, nb)
+    return zoom_kernel.zoom_front(x, rot, nb)
+
+
 def _median(x: torch.Tensor) -> torch.Tensor:
     """Median over the last axis with numpy/JAX semantics: for an even count,
     the mean of the two middle values (``torch.median`` returns the lower)."""
@@ -197,7 +229,8 @@ class ChirpDetector(nn.Module):
 
     Buffers: the conjugated template spectra (full-rate branch), or the
     decimated band templates, the mixing ramp and the refinement matrices
-    (zoom branch)."""
+    (zoom branch).  On a CUDA device the zoom branch loads its window
+    pass's kernel here, so that the first call pays nothing for it."""
 
     def __init__(self, cfg: ChirpConfig, num_samples: int,
                  device: str | torch.device = "cuda"):
@@ -222,6 +255,8 @@ class ChirpDetector(nn.Module):
                               ("up_mr", up_mats[0]), ("up_mi", up_mats[1]),
                               ("down_mr", down_mats[0]), ("down_mi", down_mats[1])):
                 self.register_buffer(name, torch.as_tensor(arr, device=dev))
+            if dev.type == "cuda":
+                zoom_kernel.load()
         else:
             up_t, down_t, energy = _templates(cfg)
             for name, t in (("up_fft", up_t), ("down_fft", down_t)):
@@ -336,22 +371,21 @@ class ChirpDetector(nn.Module):
         nb = self.nfft // D
         nblk = n // D
         chirp_len = self.chirp_len
-        # The mix opens the search and the decision closes it outside the
+        # The window pass opens the search and the decision closes it outside the
         # spans of its parts: a profiler ties each kernel to the innermost
         # span alone, and the caller's ``rx.sync`` keeps a device-side range
         # over the whole search only through kernels of its own.
-        # Decimated complex baseband: mix by the band-center ramp and box-sum
-        # groups of D samples; every transform after it is D times smaller.
-        zb = (x[:, : nblk * D] * self.rot).reshape(B, nblk, D).sum(-1)
+        # Decimated complex baseband (mixed by the band-center ramp, groups of
+        # D samples box-summed, zero-padded to nb points: every transform
+        # after it is D times smaller) and each group's energy, in one pass.
+        zb, blk = zoom_front(x, self.rot, nb)
         with span("sync.coarse"):
-            Z = torch.fft.fft(zb, nb)
+            Z = torch.fft.fft(zb)
             env_up = torch.abs(torch.fft.ifft(Z * self.up_band))     # ~|c(mD)|
             env_down = torch.abs(torch.fft.ifft(Z * self.down_band))
 
             # Sliding window energy at the stride-D lags (exact for these lags).
             num_lags = n - chirp_len
-            xb = x[:, : nblk * D]
-            blk = (xb * xb).reshape(B, nblk, D).sum(-1)
             zero = torch.zeros((B, 1), dtype=x.dtype, device=x.device)
             csum = torch.cat([zero, wide_cumsum(blk, dim=-1)], dim=-1)
             idx = torch.arange(nb, dtype=torch.int32, device=x.device) * D

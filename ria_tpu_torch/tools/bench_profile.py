@@ -146,6 +146,14 @@ def stage_times(p: Profile, iters: int = ITERS) -> dict[str, float]:
     }
 
 
+# What a profile runs before the profiled call, and leaves out of the split:
+# LEAD_S seconds on the host, then LEAD_LAUNCHES short spins on the card
+# (``torch.cuda._sleep``, whose kernel is LEAD_KERNEL).
+LEAD_S = 0.1
+LEAD_LAUNCHES = 128
+LEAD_KERNEL = "spin_kernel"
+
+
 def span_split(fn, device: str | torch.device) -> dict:
     """One call of ``fn`` (a chain on ``device``, the card or the CPU) under
     torch.profiler: for each span of :data:`SPANS`, ``ms`` and ``kernels``
@@ -157,7 +165,13 @@ def span_split(fn, device: str | torch.device) -> dict:
 
     On the card a piece of work belongs to a span when it runs inside the
     span's device-side range, which the profiler records for each
-    ``record_function``; without those ranges in a trace it raises."""
+    ``record_function``; without those ranges in a trace it raises.  A
+    lead-in (:data:`LEAD_S`, :data:`LEAD_LAUNCHES`) comes before the call:
+    a profile taken in a process that has run for a while misses the first
+    device work it sees (on an NVIDIA H100, torch 2.11: the first kernel
+    after some 30 s of work, the first 23-36 after 300 s, one 10 ms spin
+    on the card before them or not), and the first kernel of a chain call
+    opens ``rx.sync``'s range."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -169,6 +183,11 @@ def span_split(fn, device: str | torch.device) -> dict:
         if cuda:
             torch.cuda.synchronize()
         with profile(activities=activities) as prof:
+            time.sleep(LEAD_S)
+            if cuda:
+                for _ in range(LEAD_LAUNCHES):
+                    torch.cuda._sleep(100)
+                torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
             if cuda:
@@ -179,7 +198,8 @@ def span_split(fn, device: str | torch.device) -> dict:
                 if e.name in SPANS and e.device_type == DeviceType.CPU}
         ranges = {e.name: e.time_range for e in events
                   if e.name in SPANS and e.device_type == DeviceType.CUDA and is_annotation(e)}
-        work = [e for e in events if e.device_type == DeviceType.CUDA and not is_annotation(e)]
+        work = [e for e in events if e.device_type == DeviceType.CUDA and not is_annotation(e)
+                and LEAD_KERNEL not in e.name]
         if len(host) == len(SPANS) and (not cuda or (len(ranges) == len(SPANS) and work)):
             break
     else:

@@ -127,3 +127,82 @@ def test_cuda_device_without_card_raises():
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError):
         tchirp.ChirpDetector(tchirp.ChirpConfig(), 207328, device="cuda")
+
+
+@pytest.mark.parametrize("B,n", [(1, 207328), (3, 207328), (2, 207327)])
+def test_zoom_front_plain_is_the_inline_expressions(B, n):
+    """The plain window pass returns what the zoom branch computed inline
+    before (mix and box-sum, block energy), bit for bit, and the FFT of its
+    zero-padded baseband is the FFT that padded it itself."""
+    det = tchirp.ChirpDetector(tchirp.ChirpConfig(), n, "cpu")
+    D, nb = tchirp._ZOOM_DECIM, det.nfft // tchirp._ZOOM_DECIM
+    nblk = n // D
+    x = torch.as_tensor(np.random.default_rng(n + B).normal(0, 0.3, (B, n)).astype(np.float32))
+    x[:, 160:800] = 0.0
+    zb, blk = tchirp.zoom_front_plain(x, det.rot, nb)
+    old_zb = (x[:, : nblk * D] * det.rot).reshape(B, nblk, D).sum(-1)
+    xb = x[:, : nblk * D]
+    old_blk = (xb * xb).reshape(B, nblk, D).sum(-1)
+    assert zb.shape == (B, nb) and zb.dtype == torch.complex64
+    assert torch.equal(zb[:, :nblk], old_zb) and torch.equal(blk, old_blk)
+    assert bool((zb[:, nblk:] == 0).all()) and bool((zb[:, 10:50] == 0).all())
+    assert torch.equal(torch.fft.fft(zb), torch.fft.fft(old_zb, nb))
+    assert all(torch.equal(a, b) for a, b in zip(tchirp.zoom_front(x, det.rot, nb), (zb, blk)))
+
+
+def test_cpu_tensor_never_reaches_the_kernel(monkeypatch):
+    """On the CPU the detector neither loads nor launches the window pass's
+    kernel, and ``LAUNCHES`` stays as it was."""
+    from ria_tpu_torch.sync import zoom_kernel
+
+    def refuse(*args):
+        raise AssertionError("the CUDA kernel was reached from a CPU tensor")
+
+    monkeypatch.setattr(zoom_kernel, "load", refuse)
+    monkeypatch.setattr(zoom_kernel, "zoom_front", refuse)
+    before = zoom_kernel.LAUNCHES
+    det = tchirp.ChirpDetector(tchirp.ChirpConfig(), 207328, "cpu")
+    det(torch.as_tensor(_windows({}, 207328, [(4000, 2.0)], seed=5)))
+    assert zoom_kernel.LAUNCHES == before
+
+
+def test_kernel_wrapper_refuses_a_cpu_tensor(monkeypatch):
+    """The wrapper raises on a CPU tensor before anything is built: it has
+    no path that falls back to the plain version."""
+    from ria_tpu_torch.fec import ldpc_kernel
+    from ria_tpu_torch.sync import zoom_kernel
+
+    def refuse(name):
+        raise AssertionError("a library was loaded for a CPU tensor")
+
+    monkeypatch.setattr(ldpc_kernel, "kernel", refuse)
+    before = zoom_kernel.LAUNCHES
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        zoom_kernel.zoom_front(torch.zeros(2, 64), torch.zeros(64, dtype=torch.complex64), 8)
+    assert zoom_kernel.LAUNCHES == before
+
+
+def test_zoom_front_is_built_with_the_decoders_and_typed():
+    """``zoom_front`` is a library of ``ldpc_kernel.build()``'s parallel
+    nvcc run, and its C entry point, bound on a stand-in library (no nvcc
+    here), takes a pointer for each pointer of the source's signature and
+    for the stream, an int for each int."""
+    import ctypes
+    import re
+
+    from ria_tpu_torch.fec import ldpc_kernel
+
+    source, flags = ldpc_kernel.LIBRARIES["zoom_front"]
+    assert source.name == "zoom_front.cu" and source.is_file()
+    assert flags == ("-cudart", "shared")  # the runtime PyTorch has loaded
+    sig = re.search(r'extern "C" int ria_zoom_front\(([^)]*)\)', source.read_text()).group(1)
+    params = [p.strip() for p in sig.split(",")]
+    kinds = ["ptr" if "*" in p else "int" for p in params]
+    assert kinds == ["ptr"] * 4 + ["int"] * 3 + ["ptr"] and params[-1] == "void* stream"
+
+    class StandIn:
+        ria_zoom_front = type("Fn", (), {})()
+
+    fn = ldpc_kernel.kernel_entry_point(StandIn(), "zoom_front")
+    assert fn.argtypes == [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    assert fn.restype is ctypes.c_int
