@@ -40,7 +40,9 @@ loop over symbols.  Phase ramps stay in float32, as in the reference.
 
 from __future__ import annotations
 
+import collections
 import functools
+import threading
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -717,6 +719,16 @@ class OFDMDemodResult(NamedTuple):
 
 COHERENT = ("BPSK", "QPSK", "QAM16", "QAM32", "QAM64", "QAM256")
 
+# The equaliser path of each ``from_bins`` call since start-up (or since a
+# caller last cleared it), by name: "pilot_tracking" (coherent, two or more
+# pilots), "common_phase" (the broadcast MMSE, with a pilots' phase correction
+# where there are pilots), "adaptive" (LMS / RLS) or "d8psk" (the sequential
+# two-pass correction).  The path is a host decision, so counting it costs no
+# device sync.  Stations demodulate from threads of their own, so it moves
+# under a lock.
+EQ_PATHS: collections.Counter[str] = collections.Counter()
+_EQ_LOCK = threading.Lock()
+
 
 def _demap(mod: str, eq: torch.Tensor, prev: torch.Tensor, nv: torch.Tensor,
            table: torch.Tensor | None = None) -> torch.Tensor:
@@ -906,73 +918,84 @@ class OFDMDemodulator(nn.Module):
         cfg = self.cfg
         T, S, D = self.T, self.S, self.D
         mod = cfg.modulation
-
-        # LTS channel estimate: H = mean(Y / X_known) over training symbols.
-        H_data = torch.mean(Y_data[..., :T, :] / self.lts_data, dim=-2)  # [..., D]
-        if Y_pilot is not None:
-            H_pilot = torch.mean(Y_pilot[..., :T, :] / self.pilots, dim=-2)
-
-        # Noise variance from the LTS repeat difference.
-        if T >= 2:
-            d = Y_data[..., 1, :] - Y_data[..., 0, :]
-            noise_var = torch.mean(torch.square(torch.abs(d)), dim=-1) / 2.0
+        tracking = mod in COHERENT and Y_pilot is not None and self.P > 1
+        if cfg.adaptive_eq and mod in COHERENT:
+            path = "adaptive"
+        elif mod == "D8PSK":
+            path = "d8psk"
         else:
-            noise_var = torch.mean(torch.square(torch.abs(H_data)), dim=-1) / DEFAULT_SNR_LINEAR
-        noise_var = torch.clamp_min(noise_var, 1e-9)
+            path = "pilot_tracking" if tracking else "common_phase"
+        with _EQ_LOCK:
+            EQ_PATHS[path] += 1
 
-        h_power = torch.square(torch.abs(H_data))
-        avg_h_power = torch.mean(h_power, dim=-1, keepdim=True)
-        fade_thr = FADE_THRESHOLD_RATIO * avg_h_power
+        with span("demod.equalize"):
+            # LTS channel estimate: H = mean(Y / X_known) over training symbols.
+            H_data = torch.mean(Y_data[..., :T, :] / self.lts_data, dim=-2)  # [..., D]
+            if Y_pilot is not None:
+                H_pilot = torch.mean(Y_pilot[..., :T, :] / self.pilots, dim=-2)
 
-        Yd = Y_data[..., T:, :]  # [..., S, D]
-        nv = noise_var[..., None, None]
-        if mod in COHERENT and Y_pilot is not None and self.P > 1:
-            # Per-symbol pilot TRACKING: the ratio H_s/H_lts at each pilot,
-            # clamped, time-EMA'd from the LTS baseline (ratio 1),
-            # interpolated across carriers, re-scaling the dense LTS estimate.
-            Hp_s = Y_pilot[..., T:, :] / self.pilots               # [..., S, P]
-            base = torch.where(torch.abs(H_pilot) > 1e-9, H_pilot, 1.0 + 0j)
-            ratio = Hp_s / base[..., None, :]
-            rmag = torch.abs(ratio)
-            ratio = ratio * (torch.clamp(rmag, 0.25, 4.0) / torch.clamp_min(rmag, 1e-9))
-            a = 0.35
-            A = torch.full_like(ratio, 1.0 - a)
-            # seed r~_{-1} = 1: the first element's B is (1-a)*1 + a*r_0
-            Bv = a * ratio
-            Bv = torch.cat([Bv[..., :1, :] + (1.0 - a), Bv[..., 1:, :]], dim=-2)
-            ratio_s = _affine_scan(A, Bv)
-            R = ratio_s @ self.w_t                                  # [..., S, D]
-            # Near-AWGN gate (CV of |H| <= 0.15): pilot-weighted common
-            # phase/gain only; a selective channel keeps the per-carrier ratio.
-            h_mag0 = torch.abs(H_data)
-            cv0 = torch.std(h_mag0, dim=-1, correction=0) / torch.clamp_min(
-                torch.mean(h_mag0, dim=-1), 1e-9)
-            wgt = torch.square(torch.abs(base))[..., None, :]
-            r_common = (torch.sum(ratio_s * wgt, dim=-1)
-                        / torch.clamp_min(torch.sum(wgt, dim=-1), 1e-12))
-            R = torch.where((cv0 > 0.15)[..., None, None], R, r_common[..., None])
-            H_s = H_data[..., None, :] * R
-            hp_s = torch.square(torch.abs(H_s))
-            denom = hp_s + nv
-            eq = Yd * torch.conj(H_s) / torch.clamp_min(denom, 1e-10)
-            carrier_nv = nv / torch.clamp_min(denom, 1e-10)
-            carrier_nv = torch.where(hp_s < fade_thr[..., None, :],
-                                     MAX_CARRIER_NOISE_VAR, carrier_nv)
-            carrier_nv = torch.clamp(carrier_nv, MIN_CARRIER_NOISE_VAR, MAX_CARRIER_NOISE_VAR)
-        else:
-            # Pilot-based common phase correction per data symbol.
-            if Y_pilot is not None and self.P > 0:
-                expect = H_pilot[..., None, :] * self.pilots
-                rot = torch.sum(Y_pilot[..., T:, :] * torch.conj(expect), dim=-1)  # [..., S]
-                Yd = Yd * _cis(-torch.angle(rot))[..., None]
-            # MMSE equalization (broadcast over symbols).
-            denom = h_power[..., None, :] + nv
-            eq = Yd * torch.conj(H_data[..., None, :]) / torch.clamp_min(denom, 1e-10)
-            carrier_nv = nv / torch.clamp_min(denom, 1e-10)
-            carrier_nv = torch.where(h_power[..., None, :] < fade_thr[..., None, :],
-                                     MAX_CARRIER_NOISE_VAR, carrier_nv)
-            carrier_nv = torch.clamp(carrier_nv, MIN_CARRIER_NOISE_VAR, MAX_CARRIER_NOISE_VAR)
-        carrier_nv = carrier_nv.expand(eq.shape)
+            # Noise variance from the LTS repeat difference.
+            if T >= 2:
+                d = Y_data[..., 1, :] - Y_data[..., 0, :]
+                noise_var = torch.mean(torch.square(torch.abs(d)), dim=-1) / 2.0
+            else:
+                noise_var = (torch.mean(torch.square(torch.abs(H_data)), dim=-1)
+                             / DEFAULT_SNR_LINEAR)
+            noise_var = torch.clamp_min(noise_var, 1e-9)
+
+            h_power = torch.square(torch.abs(H_data))
+            avg_h_power = torch.mean(h_power, dim=-1, keepdim=True)
+            fade_thr = FADE_THRESHOLD_RATIO * avg_h_power
+
+            Yd = Y_data[..., T:, :]  # [..., S, D]
+            nv = noise_var[..., None, None]
+            if tracking:
+                # Per-symbol pilot TRACKING: the ratio H_s/H_lts at each pilot,
+                # clamped, time-EMA'd from the LTS baseline (ratio 1),
+                # interpolated across carriers, re-scaling the dense LTS estimate.
+                Hp_s = Y_pilot[..., T:, :] / self.pilots               # [..., S, P]
+                base = torch.where(torch.abs(H_pilot) > 1e-9, H_pilot, 1.0 + 0j)
+                ratio = Hp_s / base[..., None, :]
+                rmag = torch.abs(ratio)
+                ratio = ratio * (torch.clamp(rmag, 0.25, 4.0) / torch.clamp_min(rmag, 1e-9))
+                a = 0.35
+                A = torch.full_like(ratio, 1.0 - a)
+                # seed r~_{-1} = 1: the first element's B is (1-a)*1 + a*r_0
+                Bv = a * ratio
+                Bv = torch.cat([Bv[..., :1, :] + (1.0 - a), Bv[..., 1:, :]], dim=-2)
+                ratio_s = _affine_scan(A, Bv)
+                R = ratio_s @ self.w_t                                  # [..., S, D]
+                # Near-AWGN gate (CV of |H| <= 0.15): pilot-weighted common
+                # phase/gain only; a selective channel keeps the per-carrier ratio.
+                h_mag0 = torch.abs(H_data)
+                cv0 = torch.std(h_mag0, dim=-1, correction=0) / torch.clamp_min(
+                    torch.mean(h_mag0, dim=-1), 1e-9)
+                wgt = torch.square(torch.abs(base))[..., None, :]
+                r_common = (torch.sum(ratio_s * wgt, dim=-1)
+                            / torch.clamp_min(torch.sum(wgt, dim=-1), 1e-12))
+                R = torch.where((cv0 > 0.15)[..., None, None], R, r_common[..., None])
+                H_s = H_data[..., None, :] * R
+                hp_s = torch.square(torch.abs(H_s))
+                denom = hp_s + nv
+                eq = Yd * torch.conj(H_s) / torch.clamp_min(denom, 1e-10)
+                carrier_nv = nv / torch.clamp_min(denom, 1e-10)
+                carrier_nv = torch.where(hp_s < fade_thr[..., None, :],
+                                         MAX_CARRIER_NOISE_VAR, carrier_nv)
+                carrier_nv = torch.clamp(carrier_nv, MIN_CARRIER_NOISE_VAR, MAX_CARRIER_NOISE_VAR)
+            else:
+                # Pilot-based common phase correction per data symbol.
+                if Y_pilot is not None and self.P > 0:
+                    expect = H_pilot[..., None, :] * self.pilots
+                    rot = torch.sum(Y_pilot[..., T:, :] * torch.conj(expect), dim=-1)  # [..., S]
+                    Yd = Yd * _cis(-torch.angle(rot))[..., None]
+                # MMSE equalization (broadcast over symbols).
+                denom = h_power[..., None, :] + nv
+                eq = Yd * torch.conj(H_data[..., None, :]) / torch.clamp_min(denom, 1e-10)
+                carrier_nv = nv / torch.clamp_min(denom, 1e-10)
+                carrier_nv = torch.where(h_power[..., None, :] < fade_thr[..., None, :],
+                                         MAX_CARRIER_NOISE_VAR, carrier_nv)
+                carrier_nv = torch.clamp(carrier_nv, MIN_CARRIER_NOISE_VAR, MAX_CARRIER_NOISE_VAR)
+            carrier_nv = carrier_nv.expand(eq.shape)
 
         ce_margin = CE_MARGIN[mod]
         h_mag = torch.abs(H_data)
@@ -981,24 +1004,25 @@ class OFDMDemodulator(nn.Module):
                              / torch.clamp_min(mean_h, 1e-9), 0.0)
         snr_db = 10.0 * torch.log10(torch.clamp_min(avg_h_power[..., 0] / noise_var, 1e-6))
 
-        if cfg.adaptive_eq and mod in COHERENT:
-            llrs, eq = self._adaptive(Yd, H_data, noise_var, ce_margin)
-        elif mod == "D8PSK":
-            llrs = self._d8psk(eq, carrier_nv, ce_margin, fading)
-        else:
-            # Symbol-parallel path: the differential reference is the
-            # previous symbol's equalized value, and the EMA/variance
-            # instability chain is a first-order linear recurrence.
-            mags = torch.abs(eq)                       # [..., S, D]
-            ema_before = _affine_prefix(mags, mags[..., 0, :], MAG_EMA_ALPHA)
-            delta = mags - ema_before
-            var_before = _affine_prefix(delta * delta, torch.zeros_like(mags[..., 0, :]),
-                                        MAG_EMA_ALPHA)
-            norm_var = var_before / torch.clamp_min(ema_before * ema_before, 1e-6)
-            nv_eff = carrier_nv * ce_margin * (1.0 + CARRIER_ADAPTIVE_K * norm_var)
-            prev_all = torch.cat([torch.ones_like(eq[..., :1, :]), eq[..., :-1, :]], dim=-2)
-            llrs = _demap(mod, eq, prev_all, nv_eff, self.table)  # [..., S, D, bps]
-        soft = llrs.reshape(llrs.shape[:-3] + (S * D * BITS_PER_SYMBOL[mod],))
+        with span("demod.demap"):
+            if cfg.adaptive_eq and mod in COHERENT:
+                llrs, eq = self._adaptive(Yd, H_data, noise_var, ce_margin)
+            elif mod == "D8PSK":
+                llrs = self._d8psk(eq, carrier_nv, ce_margin, fading)
+            else:
+                # Symbol-parallel path: the differential reference is the
+                # previous symbol's equalized value, and the EMA/variance
+                # instability chain is a first-order linear recurrence.
+                mags = torch.abs(eq)                       # [..., S, D]
+                ema_before = _affine_prefix(mags, mags[..., 0, :], MAG_EMA_ALPHA)
+                delta = mags - ema_before
+                var_before = _affine_prefix(delta * delta, torch.zeros_like(mags[..., 0, :]),
+                                            MAG_EMA_ALPHA)
+                norm_var = var_before / torch.clamp_min(ema_before * ema_before, 1e-6)
+                nv_eff = carrier_nv * ce_margin * (1.0 + CARRIER_ADAPTIVE_K * norm_var)
+                prev_all = torch.cat([torch.ones_like(eq[..., :1, :]), eq[..., :-1, :]], dim=-2)
+                llrs = _demap(mod, eq, prev_all, nv_eff, self.table)  # [..., S, D, bps]
+            soft = llrs.reshape(llrs.shape[:-3] + (S * D * BITS_PER_SYMBOL[mod],))
         return OFDMDemodResult(soft_bits=soft, snr_db=snr_db, noise_var=noise_var,
                                fading_index=fading, channel_mag=h_mag, symbols=eq)
 
