@@ -30,14 +30,21 @@ and raising on failure:
    the order of a 16-term sum (the kernel adds in PyTorch's order, so no
    group should differ), all-zero groups 0; its device µs beside its bound
    from the bytes and the share of it, and the plain version's ms;
+3c. the Schmidl-Cox search's kernels (``csrc/sc_search.cu``) against the
+   plain search (``SchmidlCoxDetector.search_plain``) on the card, at both
+   OFDM cells' shapes (2,048 windows of 26,160 samples, QAM64; 1,024 of
+   42,720, DQPSK): all five outputs equal bit for bit; each kernel's device
+   µs beside its bound from the bytes and the share of it, the whole
+   search's ms on the card beside the plain search's;
 4. main path: the MC-DPSK RX chain at the bench.py chain-1 geometry (64
    channels, window 207,328, R1/4, 4 codewords, 10 dB AWGN) from the port's
    own TX, checked against the transmitted bits and against the same chain
-   on the CPU, with K1's launch count from that run and exactly one launch
-   of the window pass;
+   on the CPU, with K1's launch count from that run, exactly one launch
+   of the window pass and no Schmidl-Cox search on the card;
 4b. OFDM chains: bench.py's chains 2 and 3 (north-star configs #3, DQPSK
    R1/2 at 15 dB, window 42,720, and #4, QAM64 R3/4 at 25 dB, window
-   26,160; 64 channels each) from the port's own TX: all detected,
+   26,160; 64 channels each) from the port's own TX, each call one
+   Schmidl-Cox search through the kernels (``sc_kernel.LAUNCHES``): all detected,
    cw_decode_rate >= 0.95, bits equal to those sent, one K1 launch and no K2
    launch in the call, and the same chain on the CPU equal;
 4c. single-frame waveform paths (``ria_tpu_torch.tools.waveform_paths``), 64
@@ -249,11 +256,14 @@ def log(msg: str) -> None:
 
 
 def zero_counts() -> None:
-    """Every build's launch count set to 0."""
+    """Every build's launch count set to 0, and the search kernels' counts."""
     from ria_tpu_torch.fec import ldpc_kernel
+    from ria_tpu_torch.sync import sc_kernel, zoom_kernel
 
     for name in COUNTS:
         setattr(ldpc_kernel, name, 0)
+    zoom_kernel.LAUNCHES = 0
+    sc_kernel.LAUNCHES = 0
 
 
 def k2_launches() -> int:
@@ -424,6 +434,81 @@ def zoom_front_phase(card: str, dev: torch.device) -> dict:
             "ms": main["device_us"] / 1e3, "plain_ms": main["plain_ms"],
             "bound_us": main["bound_us"], "bound_ms": main["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": None, "by_batch": by_batch}
+
+
+def sc_windows(cfg, B: int, n: int, dev: torch.device, seed: int) -> torch.Tensor:
+    """[B, n] float32 windows on the card: a frame of the port's TX at a lead
+    in each row at 20 dB, every 5th row noise alone, every 7th all zeros."""
+    from ria_tpu_torch.wave import ofdm
+
+    rng = np.random.default_rng(seed)
+    frames = [ofdm.tx_frame(rng.integers(0, 2, 4 * 648), cfg, "cox",
+                            tx_cfo_hz=float(rng.uniform(-20.0, 20.0))) for _ in range(4)]
+    x = np.zeros((B, n), np.float32)
+    for b in range(B):
+        f = frames[b % 4]
+        if b % 5 != 4:
+            lead = int(rng.integers(0, n - len(f) + 1))
+            x[b, lead : lead + len(f)] = f
+    x += rng.standard_normal((B, n), dtype=np.float32) * np.float32(
+        np.sqrt(np.mean(frames[0] ** 2)) / 10.0)
+    x[3::7] = 0.0
+    return torch.as_tensor(x, device=dev)
+
+
+def sc_search_phase(card: str, dev: torch.device) -> dict:
+    """Phase 3c: the Schmidl-Cox search's kernels against the plain search on
+    the card and timed, at both OFDM cells' shapes; returns their ``kernels``
+    entry."""
+    from ria_tpu_torch.utils.timing import cuda_ms, kernel_us
+    from ria_tpu_torch.wave import ofdm
+
+    shapes = {"ofdm_qam64_r34": (ofdm.OFDMConfig(modulation="QAM64", use_pilots=True,
+                                                 pilot_spacing=8), 2048, 26160),
+              "ofdm_dqpsk_r14": (ofdm.OFDMConfig(modulation="DQPSK"), 1024, 42720)}
+    by_cell = {}
+    for cell, (cfg, B, n) in shapes.items():
+        det = ofdm.SchmidlCoxDetector(cfg, n, dev)
+        x = sc_windows(cfg, B, n, dev, seed=B)
+        got, want = det(x), det.search_plain(x)
+        torch.cuda.synchronize()
+        for name, g, w in zip(ofdm.SCSyncResult._fields, got, want):
+            gb, wb = (t.view(torch.int32) if t.dtype == torch.float32 else t for t in (g, w))
+            if not torch.equal(gb, wb):
+                raise AssertionError(f"the Schmidl-Cox kernels' {name} differs from the plain "
+                                     f"search in {int((gb != wb).sum())} of {B} rows ({cell})")
+        R, L, sym, nfft = det.R, det.L, cfg.symbol_samples, det.nfft
+        seg_len = sym + L
+        seg_nfft = 1 << (seg_len - 1).bit_length()
+        # Each input byte read once, each output byte written once.
+        io = {"sc_pad": B * (8 * (nfft - R) + 4 * (seg_nfft - seg_len)),
+              "sc_coarse": 4 * B * n + 8 * (n // 8 * 8) + 12 * B,
+              "sc_slice": B * (4 + 4 * R + 8 * R),
+              "sc_pick": B * (4 + 8 * (R - L) + 4 * R + 8 * seg_len + 8),
+              "sc_decide": B * (8 + 16 + 9)}
+        kernels = {}
+        for name, nbytes in io.items():
+            us, how = kernel_us(lambda: det(x), f"{name}_kernel")
+            bound = nbytes / HBM_BYTES_PER_S * 1e6
+            kernels[name] = {"device_us": us, "bound_us": bound, "bytes": nbytes}
+            log(f"[3c sc_search] {cell} B={B} n={n}: {name} {us:.2f} us per launch ({how}), "
+                f"bound {bound:.2f} us ({nbytes / 1e6:.3f} MB), {bound / us:.1%} of it ({card})")
+        search = cuda_ms(lambda: det(x), reps=20)
+        plain = cuda_ms(lambda: det.search_plain(x), reps=10)
+        log(f"[3c sc_search] {cell}: the search {search[0]:.4f} ms a call on the card (min "
+            f"{search[1]:.4f}, max {search[2]:.4f}), the plain search {plain[0]:.4f} ms (min "
+            f"{plain[1]:.4f}, max {plain[2]:.4f}); five outputs equal bit for bit, "
+            f"{int(got.detected.sum())}/{B} detected ({card})")
+        by_cell[cell] = {"kernels": kernels, "search_ms": search[0], "plain_ms": plain[0],
+                         "B": B, "n": n}
+    main = by_cell["ofdm_qam64_r34"]
+    device_us = sum(k["device_us"] for k in main["kernels"].values())
+    bound_us = sum(k["bound_us"] for k in main["kernels"].values())
+    return {"name": "sc_search", "route": "cuda", "source": "ria_tpu_torch/csrc/sc_search.cu",
+            "replaces": None, "launches_per_call": 1, "device_us": device_us,
+            "ms": main["search_ms"], "plain_ms": main["plain_ms"], "bound_us": bound_us,
+            "bound_ms": bound_us / 1e3, "bound_by": "bytes", "library_ms": None,
+            "by_cell": by_cell}
 
 
 def run_cli(argv: list[str]) -> tuple[int, str, str]:
@@ -1608,21 +1693,25 @@ def main() -> int:
     # -- 3b. the chirp search's window pass -----------------------------------
     zoom_entry = zoom_front_phase(card, dev)
 
+    # -- 3c. the Schmidl-Cox search's kernels ------------------------------------
+    sc_entry = sc_search_phase(card, dev)
+
     # -- 4. main path ---------------------------------------------------------
-    from ria_tpu_torch.sync import zoom_kernel
+    from ria_tpu_torch.sync import sc_kernel, zoom_kernel
 
     cfg, ncw, batch, window = geometry(production=True)
     audio, info = _make_batch(cfg, ncw, batch, window, seed=0, production=True, device=dev)
     rx = make_rx_pipeline(cfg, RATE, ncw, window, device=dev)
     torch.cuda.synchronize()
     zero_counts()
-    zoom_before = zoom_kernel.LAUNCHES
     out = rx(audio)
     torch.cuda.synchronize()
-    if zoom_kernel.LAUNCHES - zoom_before != 1:
+    if zoom_kernel.LAUNCHES != 1:
         raise AssertionError(f"the main path launched the window pass "
-                             f"{zoom_kernel.LAUNCHES - zoom_before} times; 1 expected")
-    zoom_entry["launches"] = zoom_kernel.LAUNCHES - zoom_before
+                             f"{zoom_kernel.LAUNCHES} times; 1 expected")
+    if sc_kernel.LAUNCHES:
+        raise AssertionError("the MC-DPSK main path ran a Schmidl-Cox search")
+    zoom_entry["launches"] = zoom_kernel.LAUNCHES
     launches = ldpc_kernel.LAUNCHES
     launches_v1_main = (ldpc_kernel.LAUNCHES_V1, ldpc_kernel.LAUNCHES_V1_BF16)
     det = out.detected.cpu().numpy()
@@ -1668,6 +1757,10 @@ def main() -> int:
         o_out = orx(o_audio)
         torch.cuda.synchronize()
         o_launches = (ldpc_kernel.LAUNCHES, k2_launches())
+        if sc_kernel.LAUNCHES != 1:
+            raise AssertionError(f"the OFDM chain ran {sc_kernel.LAUNCHES} "
+                                 "Schmidl-Cox searches through the kernels; 1 expected")
+        sc_entry["launches"] = sc_kernel.LAUNCHES
         det = o_out.detected.cpu().numpy()
         ok = o_out.cw_success.cpu().numpy()
         tag = (f"[4b OFDM] config #{config} {geom.cfg.modulation} {geom.rate} at "
@@ -2266,6 +2359,7 @@ def main() -> int:
                     "spectral_snr_ms_in_call_by_class": {name: t[3] for name, t in api_ms.items()},
                     "card": card}))
     kernels.append(zoom_entry)
+    kernels.append(sc_entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

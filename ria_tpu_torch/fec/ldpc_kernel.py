@@ -12,9 +12,10 @@
   (``csrc/ldpc_bp_v1_bf16.cu``).
 
 The same build carries the chirp search's window pass
-(``csrc/zoom_front.cu``, bound by ``ria_tpu_torch/sync/zoom_kernel.py``
-through :func:`kernel`), so that one parallel ``nvcc`` run builds every
-kernel of the port.
+(``csrc/zoom_front.cu``, bound by ``ria_tpu_torch/sync/zoom_kernel.py``)
+and the Schmidl-Cox search's kernels (``csrc/sc_search.cu``, bound by
+``ria_tpu_torch/sync/sc_kernel.py``), both through :func:`kernel`, so that
+one parallel ``nvcc`` run builds every kernel of the port.
 
 Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
 library with a plain C interface, on first use, under ``build/ria_tpu_torch/``
@@ -80,17 +81,18 @@ _NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
                "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Each library: (source, extra nvcc flags).  The decoders' C entry points are
 # named after the source (``ria_<stem>_decode``, ``ria_<stem>_resources``),
-# the other kernels' ``ria_<stem>`` (:func:`kernel`).  ``zoom_front`` links
-# the shared CUDA runtime, the one PyTorch has loaded: the first kernel of a
-# chain call, it opens ``rx.sync``'s device-side range in a profile, and a
-# profile taken late in a process missed launches made through a runtime
-# linked into the library itself (torch 2.11, an NVIDIA H100).
+# the other kernels' ``ria_<entry>`` (:func:`kernel`).  ``zoom_front`` and
+# ``sc_search`` link the shared CUDA runtime, the one PyTorch has loaded: the
+# first kernel of a chain call opens ``rx.sync``'s device-side range in a
+# profile, and a profile taken late in a process missed launches made through
+# a runtime linked into the library itself (torch 2.11, an NVIDIA H100).
 LIBRARIES = {
     "ldpc_bp": (_SOURCE, ()),
     "ldpc_bp_bf16": (_SOURCE_BF16, ()),
     "ldpc_bp_v1": (_SOURCE_V1, ()),
     "ldpc_bp_v1_bf16": (_SOURCE_V1_BF16, ()),
     "zoom_front": (_CSRC / "zoom_front.cu", ("-cudart", "shared")),
+    "sc_search": (_CSRC / "sc_search.cu", ("-cudart", "shared")),
 }
 # Each kernel's library for each precision.
 K1_LIBRARY = {"f32": "ldpc_bp", "bf16": "ldpc_bp_bf16"}
@@ -539,14 +541,16 @@ def _compile_missing(sources: dict[str, tuple[Path, tuple[str, ...]]]) -> dict[s
 def build() -> dict[str, Build]:
     """Compile every library of :data:`LIBRARIES` that is missing, all at
     once.  Returns ``{"ldpc_bp": ..., "ldpc_bp_bf16": ..., "ldpc_bp_v1": ...,
-    "ldpc_bp_v1_bf16": ..., "zoom_front": ...}``."""
+    "ldpc_bp_v1_bf16": ..., "zoom_front": ..., "sc_search": ...}``."""
     return compile_libraries(dict(LIBRARIES))
 
 
-# Pointer and int arguments of each C entry point (then the stream), by the
-# stem of its source.
+# Pointer and int arguments of each C entry point (then the stream): a
+# decoder's by the stem of its source, another kernel's by its entry's name.
 _ARGS = {"ldpc_bp": (9, 8), "ldpc_bp_bf16": (9, 8), "ldpc_bp_v1": (9, 8),
-         "ldpc_bp_v1_bf16": (9, 8), "zoom_front": (4, 3)}
+         "ldpc_bp_v1_bf16": (9, 8), "zoom_front": (4, 3),
+         "sc_pad": (2, 5), "sc_coarse": (7, 12), "sc_slice": (3, 5), "sc_pick": (7, 11),
+         "sc_decide": (9, 1)}
 
 
 def _library(name: str) -> ctypes.CDLL:
@@ -567,7 +571,7 @@ def entry_point(lib: ctypes.CDLL, name: str):
 
 def kernel_entry_point(lib: ctypes.CDLL, name: str):
     """The C entry point ``ria_<name>`` of a kernel that is not a decoder
-    (``zoom_front``) in ``lib``, with its argument types."""
+    (``zoom_front``, ``sc_coarse``, ...) in ``lib``, with its argument types."""
     return _typed(getattr(lib, f"ria_{name}"), name)
 
 
@@ -589,11 +593,12 @@ def _entry(name: str):
         return _ENTRIES[name]
 
 
-def kernel(name: str):
-    """The C entry point of library ``name`` (a kernel that is not a decoder:
-    :func:`kernel_entry_point`), every missing library built and this one
-    loaded on the first call."""
-    lib = _library(name)
+def kernel(name: str, library: str | None = None):
+    """The C entry point ``ria_<name>`` of a kernel that is not a decoder
+    (:func:`kernel_entry_point`) in ``library`` (by default the library named
+    ``name``), every missing library built and this one loaded on the first
+    call."""
+    lib = _library(library or name)
     with _LOAD_LOCK:
         if name not in _ENTRIES:
             _ENTRIES[name] = kernel_entry_point(lib, name)

@@ -51,6 +51,7 @@ import torch
 from torch import nn
 
 from ria_tpu_torch.dsp.hilbert import analytic_signal
+from ria_tpu_torch.sync import sc_kernel
 from ria_tpu_torch.sync.chirp import window_slice
 from ria_tpu_torch.utils.device import resolve_device, wide_cumsum
 from ria_tpu_torch.utils.mt19937 import MT19937
@@ -404,6 +405,42 @@ class SCSyncResult(NamedTuple):
 # groups of this many samples (the metric's plateau spans ~4 STS symbols, so
 # the lag grid cannot miss it; the LTS correlation refines to the sample).
 _SC_DEC = 8
+# The search's other scalars, which the plain search and the kernels'
+# ``sc_consts`` both take from here.
+_SC_FLOOR = 1e-6       # the -60 dB energy floor, against the row's largest
+_SC_RR_MIN = 1e-20     # the least R1 R2
+_LTS_E_MIN = 1e-12     # the least slice energy times the template's
+_LTS_PREV = 0.92       # the 92% rule
+_LTS_R_MIN = 1e-12     # the least |r| that gives a fine CFO
+
+
+def _lts_threshold(cfg: OFDMConfig) -> float:
+    """The LTS correlation's detection threshold."""
+    return 0.05 if cfg.fft_size >= 1024 else 0.35
+
+
+def _turns(cfg: OFDMConfig, lag: int) -> complex:
+    """exp(2j pi frac(fc lag / fs)): the turns the mix leaves in a product of
+    samples ``lag`` apart, which the search undoes."""
+    return complex(np.exp(2j * np.pi * float((cfg.center_freq * lag / cfg.sample_rate) % 1.0)))
+
+
+def sc_consts(cfg: OFDMConfig, ref_energy: float) -> np.ndarray:
+    """The search's scalars for its kernels (``enum Const`` of
+    ``csrc/sc_search.cu``), float32 as ATen rounds them in the plain search:
+    a Python scalar times a complex64 tensor as complex64, ``_rdiv``'s
+    divisor as the float32 reciprocal."""
+    N, sym, fs = cfg.fft_size, cfg.symbol_samples, cfg.sample_rate
+    rot_half, rot_sym = np.complex64(_turns(cfg, N // 2)), np.complex64(_turns(cfg, sym))
+    spacing = fs / sym
+    one = np.float32(1.0)
+    return np.array([
+        rot_half.real, rot_half.imag, fs, one / np.float32(np.pi * N), fs / N,
+        _SC_FLOOR, _SC_RR_MIN, ref_energy, _LTS_E_MIN, _LTS_PREV,
+        rot_sym.real, rot_sym.imag, spacing, one / np.float32(2.0 * np.pi),
+        one / np.float32(spacing), _LTS_R_MIN,
+        cfg.sync_threshold, _lts_threshold(cfg),
+    ], dtype=np.float32)
 
 
 class SchmidlCoxDetector(nn.Module):
@@ -413,8 +450,12 @@ class SchmidlCoxDetector(nn.Module):
     The SC metric gates detection and gives the coarse CFO; the LTS
     cross-correlation in a slice around the expected LTS gives the timing;
     the LTS repeat pair's phase gives the fine CFO.  Buffers: the mixer NCO
-    over the whole window (``rot``) and the conjugated spectrum of the LTS
-    template (``lts_fft``).
+    over the whole window (``rot``), the conjugated spectrum of the LTS
+    template (``lts_fft``) and the search's scalars for its kernels
+    (``sc_consts``).  A CUDA tensor is searched by the CUDA kernels of
+    ``sync/sc_kernel.py`` (loaded here on a CUDA device, so that the first
+    call pays nothing for them), a CPU tensor by :meth:`search_plain`; the
+    two agree bit for bit on the card.
     """
 
     def __init__(self, cfg: OFDMConfig, num_samples: int,
@@ -448,6 +489,10 @@ class SchmidlCoxDetector(nn.Module):
         self.nfft = 1 << (self.R - 1).bit_length()
         spec = torch.fft.fft(torch.as_tensor(lts_analytic, device=dev), self.nfft)
         self.register_buffer("lts_fft", torch.conj(spec).resolve_conj())
+        self.register_buffer("sc_consts", torch.as_tensor(sc_consts(cfg, self.ref_energy),
+                                                          device=dev))
+        if dev.type == "cuda":
+            sc_kernel.load()
 
     def forward(self, samples: torch.Tensor) -> SCSyncResult:
         shape = samples.shape[:-1]
@@ -458,10 +503,13 @@ class SchmidlCoxDetector(nn.Module):
             f = torch.zeros(shape, dtype=torch.float32, device=dev)
             return SCSyncResult(torch.zeros(shape, dtype=torch.bool, device=dev),
                                 torch.full(shape, -1, dtype=torch.int32, device=dev), f, f, f)
-        res = self._search(samples.reshape(-1, self.n).float())
+        x = samples.reshape(-1, self.n).float()
+        res = sc_kernel.search(self, x) if x.is_cuda else self.search_plain(x)
         return SCSyncResult(*(v.reshape(shape) for v in res))
 
-    def _search(self, x: torch.Tensor) -> SCSyncResult:
+    def search_plain(self, x: torch.Tensor) -> SCSyncResult:
+        """The search in PyTorch operations over x [B, n] float32: what CPU
+        tensors run, and what the kernels compute on the card."""
         cfg = self.cfg
         B, n = x.shape
         N = cfg.fft_size
@@ -487,8 +535,9 @@ class SchmidlCoxDetector(nn.Module):
             # -60 dB energy floor: silence holds only numeric residue, and
             # dividing by its energy would mint false metric peaks.
             rr = R1 * R2
-            rr_floor = 1e-6 * torch.amax(rr, dim=-1, keepdim=True)
-            M = torch.abs(P) / torch.sqrt(torch.clamp_min(torch.maximum(rr, rr_floor), 1e-20))
+            rr_floor = _SC_FLOOR * torch.amax(rr, dim=-1, keepdim=True)
+            M = torch.abs(P) / torch.sqrt(torch.clamp_min(torch.maximum(rr, rr_floor),
+                                                          _SC_RR_MIN))
 
             # Offset d has data_start = d + cp -> decimated index (d + cp) / DEC.
             cp_d = cfg.cp_len // _SC_DEC
@@ -500,9 +549,7 @@ class SchmidlCoxDetector(nn.Module):
 
             # Coarse CFO at the peak; the mix leaves fc*half/fs turns in the
             # lag-half product, whose fractional part is undone here.
-            frac_half = float((cfg.center_freq * half / cfg.sample_rate) % 1.0)
-            P_peak = _take(P[:, cp_d : cp_d + num_lags], peak_d) * complex(
-                np.exp(2j * np.pi * frac_half))
+            P_peak = _take(P[:, cp_d : cp_d + num_lags], peak_d) * _turns(cfg, half)
             cfo = _rdiv(torch.angle(P_peak) * cfg.sample_rate, np.pi * N)
             max_cfo = cfg.sample_rate / N
             cfo = torch.clamp(cfo, -max_cfo, max_cfo)
@@ -517,9 +564,9 @@ class SchmidlCoxDetector(nn.Module):
             X = torch.fft.fft(sl.to(torch.complex64), self.nfft)
             xc = torch.fft.ifft(X * self.lts_fft)[:, : R - L]
             e = _sliding(torch.square(sl), L)[:, : xc.shape[-1]]
-            e_floor = 1e-6 * torch.amax(e, dim=-1, keepdim=True)
+            e_floor = _SC_FLOOR * torch.amax(e, dim=-1, keepdim=True)
             corr = torch.abs(xc) / torch.sqrt(
-                torch.clamp_min(torch.maximum(e, e_floor) * self.ref_energy, 1e-12))
+                torch.clamp_min(torch.maximum(e, e_floor) * self.ref_energy, _LTS_E_MIN))
 
             # Candidates: [expected - 3 sym, expected + sym/2] relative to lo.
             lags = torch.arange(corr.shape[-1], dtype=torch.int32, device=x.device)
@@ -532,7 +579,7 @@ class SchmidlCoxDetector(nn.Module):
             # Prefer the earlier of the two LTS repeats (92% rule).
             prev_rel = torch.clamp_min(pos_rel - sym, 0)
             prev_val = _take(corr, prev_rel)
-            take_prev = (pos_rel >= sym) & (prev_val >= lts_val * 0.92)
+            take_prev = (pos_rel >= sym) & (prev_val >= lts_val * _LTS_PREV)
             pos_rel = torch.where(take_prev, prev_rel, pos_rel)
             lts_val = torch.where(take_prev, prev_val, lts_val)
             lts_pos = lo + pos_rel
@@ -544,15 +591,13 @@ class SchmidlCoxDetector(nn.Module):
             seg = window_slice(x, torch.clamp(lts_pos, 0, max(n - seg_len, 0)), seg_len)
             segz = analytic_signal(seg)
             r = torch.sum(segz[:, :L] * torch.conj(segz[:, sym : sym + L]), dim=-1)
-            frac_sym = float((cfg.center_freq * sym / cfg.sample_rate) % 1.0)
-            r = r * complex(np.exp(2j * np.pi * frac_sym))
+            r = r * _turns(cfg, sym)
             spacing = cfg.sample_rate / sym
             cfo_fine = _rdiv(-torch.angle(r) * spacing, 2.0 * np.pi)
             k = torch.round(_rdiv(cfo - cfo_fine, spacing))
-            cfo = torch.where(torch.abs(r) > 1e-12, cfo_fine + k * spacing, cfo)
+            cfo = torch.where(torch.abs(r) > _LTS_R_MIN, cfo_fine + k * spacing, cfo)
 
-        lts_threshold = 0.05 if cfg.fft_size >= 1024 else 0.35
-        detected = (peak_val > cfg.sync_threshold) & (lts_val > lts_threshold)
+        detected = (peak_val > cfg.sync_threshold) & (lts_val > _lts_threshold(cfg))
         return SCSyncResult(
             detected=detected,
             lts_start=torch.where(detected, lts_pos, -1).to(torch.int32),
