@@ -44,7 +44,7 @@ and raising on failure:
 4b. OFDM chains: bench.py's chains 2 and 3 (north-star configs #3, DQPSK
    R1/2 at 15 dB, window 42,720, and #4, QAM64 R3/4 at 25 dB, window
    26,160; 64 channels each) from the port's own TX, each call one
-   Schmidl-Cox search through the kernels (``sc_kernel.LAUNCHES``): all detected,
+   Schmidl-Cox search through the kernels (``launch_count("sc_coarse")``): all detected,
    cw_decode_rate >= 0.95, bits equal to those sent, one K1 launch and no K2
    launch in the call, and the same chain on the CPU equal;
 4c. single-frame waveform paths (``ria_tpu_torch.tools.waveform_paths``), 64
@@ -247,8 +247,10 @@ OPS_PER_EDGE = 14
 # (the gathered posterior and the summed c2v), each a conversion there and
 # one back.
 BF16_OPS_PER_EDGE = OPS_PER_EDGE + 4
-# The launch counts of ``ria_tpu_torch.fec.ldpc_kernel``, one per build.
-COUNTS = ("LAUNCHES", "LAUNCHES_BF16", "LAUNCHES_V1", "LAUNCHES_V1_BF16")
+# The decoder builds' C entry points, whose launches ``utils/cuda_kernels.py``
+# counts: K1, K1 bf16, K2, K2 bf16.
+K1, K1_BF16, K2, K2_BF16 = COUNTS = ("ldpc_bp_decode", "ldpc_bp_bf16_decode",
+                                     "ldpc_bp_v1_decode", "ldpc_bp_v1_bf16_decode")
 
 
 def log(msg: str) -> None:
@@ -256,21 +258,23 @@ def log(msg: str) -> None:
 
 
 def zero_counts() -> None:
-    """Every build's launch count set to 0, and the search kernels' counts."""
-    from ria_tpu_torch.fec import ldpc_kernel
-    from ria_tpu_torch.sync import sc_kernel, zoom_kernel
+    """Every kernel's launch count set to 0."""
+    from ria_tpu_torch.utils import cuda_kernels
 
-    for name in COUNTS:
-        setattr(ldpc_kernel, name, 0)
-    zoom_kernel.LAUNCHES = 0
-    sc_kernel.LAUNCHES = 0
+    cuda_kernels.reset_launches()
+
+
+def launch_count(name: str) -> int:
+    """Launches of the C entry point ``ria_<name>`` since the counts were last
+    zeroed."""
+    from ria_tpu_torch.utils import cuda_kernels
+
+    return cuda_kernels.launches(name)
 
 
 def k2_launches() -> int:
     """K2's launches, either build, since the counts were last zeroed."""
-    from ria_tpu_torch.fec import ldpc_kernel
-
-    return ldpc_kernel.LAUNCHES_V1 + ldpc_kernel.LAUNCHES_V1_BF16
+    return launch_count(K2) + launch_count(K2_BF16)
 
 
 def same_bits(a, b) -> bool:
@@ -1377,7 +1381,6 @@ def profile_phase(card: str, dev: torch.device) -> dict:
     """Phase 4i, the stage profile and the bf16 path.  Returns {"rows": the
     four rows' ms, "split": the span split, "launches": the bf16 path's
     (K1 f32, K1 bf16, K2 of either build) launches, "k1_bf16_err", "seconds"}."""
-    from ria_tpu_torch.fec import ldpc_kernel
     from ria_tpu_torch.fec.ldpc import ldpc_decoder, make_decoder
     from ria_tpu_torch.fec.ldpc_matrix import RECOMMENDED_ITERS
     from ria_tpu_torch.tools import bench_profile as BP
@@ -1414,7 +1417,7 @@ def profile_phase(card: str, dev: torch.device) -> dict:
     zero_counts()
     got = decode16(soft)
     torch.cuda.synchronize()
-    launches = (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_BF16, k2_launches())
+    launches = (launch_count(K1), launch_count(K1_BF16), k2_launches())
     dec16 = ldpc_decoder(BP.RATE, iters, dev, "bf16")
     want = dec16.plain(soft, torch.full((soft.shape[0],), 0.75, device=dev))
     same = all(torch.equal(a, b) for a, b in zip(got, want))
@@ -1451,7 +1454,6 @@ def bench_phase(card: str, dev: torch.device) -> dict:
     (its parts'), "seconds", "k1_err", "k1_bf16_err", "us": {kernel: (device
     us, bound us, bound by, iterations)} on the LDPC batch's first copy}."""
     from ria_tpu_torch.entry import RATE, bench_batches
-    from ria_tpu_torch.fec import ldpc_kernel
     from ria_tpu_torch.fec.ldpc import LDPCDecoder, ldpc_decoder
     from ria_tpu_torch.fec.ldpc_matrix import MIN_SUM_FACTOR
     from ria_tpu_torch.tools import bench as BT
@@ -1477,7 +1479,7 @@ def bench_phase(card: str, dev: torch.device) -> dict:
         handle.remove()
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
-    totals = {"k1": ldpc_kernel.LAUNCHES, "k1_bf16": ldpc_kernel.LAUNCHES_BF16,
+    totals = {"k1": launch_count(K1), "k1_bf16": launch_count(K1_BF16),
               "k2": k2_launches()}
     d = line["detail"]
     log(f"[4j bench] python -m ria_tpu_torch.tools.bench: {line['value']:.6g} samples/s "
@@ -1610,11 +1612,12 @@ def main() -> int:
     from ria_tpu_torch.phy.pipeline import make_ofdm_rx_pipeline, make_rx_pipeline
     from ria_tpu_torch.tools import ldpc_bench
     from ria_tpu_torch.tools import waveform_paths as W
+    from ria_tpu_torch.utils import cuda_kernels
     from ria_tpu_torch.utils.timing import cuda_ms, kernel_us, queued_us, trace_call
 
     # -- 2. build -------------------------------------------------------------
     t0 = time.perf_counter()
-    builds = ldpc_kernel.build()
+    builds = cuda_kernels.build()
     log(f"[2 build] {len(builds)} libraries in {time.perf_counter() - t0:.2f} s")
     for b in builds.values():
         log(f"[2 build] {b.path.name}: nvcc {b.seconds:.2f} s")
@@ -1697,8 +1700,6 @@ def main() -> int:
     sc_entry = sc_search_phase(card, dev)
 
     # -- 4. main path ---------------------------------------------------------
-    from ria_tpu_torch.sync import sc_kernel, zoom_kernel
-
     cfg, ncw, batch, window = geometry(production=True)
     audio, info = _make_batch(cfg, ncw, batch, window, seed=0, production=True, device=dev)
     rx = make_rx_pipeline(cfg, RATE, ncw, window, device=dev)
@@ -1706,14 +1707,14 @@ def main() -> int:
     zero_counts()
     out = rx(audio)
     torch.cuda.synchronize()
-    if zoom_kernel.LAUNCHES != 1:
+    if launch_count("zoom_front") != 1:
         raise AssertionError(f"the main path launched the window pass "
-                             f"{zoom_kernel.LAUNCHES} times; 1 expected")
-    if sc_kernel.LAUNCHES:
+                             f"{launch_count('zoom_front')} times; 1 expected")
+    if launch_count("sc_coarse"):
         raise AssertionError("the MC-DPSK main path ran a Schmidl-Cox search")
-    zoom_entry["launches"] = zoom_kernel.LAUNCHES
-    launches = ldpc_kernel.LAUNCHES
-    launches_v1_main = (ldpc_kernel.LAUNCHES_V1, ldpc_kernel.LAUNCHES_V1_BF16)
+    zoom_entry["launches"] = launch_count("zoom_front")
+    launches = launch_count(K1)
+    launches_v1_main = (launch_count(K2), launch_count(K2_BF16))
     det = out.detected.cpu().numpy()
     ok = out.cw_success.cpu().numpy()
     bits = out.info_bits.cpu().numpy()
@@ -1756,11 +1757,11 @@ def main() -> int:
         zero_counts()
         o_out = orx(o_audio)
         torch.cuda.synchronize()
-        o_launches = (ldpc_kernel.LAUNCHES, k2_launches())
-        if sc_kernel.LAUNCHES != 1:
-            raise AssertionError(f"the OFDM chain ran {sc_kernel.LAUNCHES} "
+        o_launches = (launch_count(K1), k2_launches())
+        if launch_count("sc_coarse") != 1:
+            raise AssertionError(f"the OFDM chain ran {launch_count('sc_coarse')} "
                                  "Schmidl-Cox searches through the kernels; 1 expected")
-        sc_entry["launches"] = sc_kernel.LAUNCHES
+        sc_entry["launches"] = launch_count("sc_coarse")
         det = o_out.detected.cpu().numpy()
         ok = o_out.cw_success.cpu().numpy()
         tag = (f"[4b OFDM] config #{config} {geom.cfg.modulation} {geom.rate} at "
@@ -1803,7 +1804,7 @@ def main() -> int:
         zero_counts()
         w_out = path(*x)
         torch.cuda.synchronize()
-        w_launches = (ldpc_kernel.LAUNCHES, k2_launches())
+        w_launches = (launch_count(K1), k2_launches())
         w_cpu = path(*batch_w.inputs)
         geom_w = path.geom
         tag = (f"[4c paths] {name} B={W.BATCH} window={geom_w.window} at {geom_w.snr_db:g} dB")
@@ -1898,7 +1899,7 @@ def main() -> int:
     zero_counts()
     rows = ldpc_bench.run(BENCH_ARGS)
     torch.cuda.synchronize()
-    launches_v1, launches_ab = ldpc_kernel.LAUNCHES_V1, ldpc_kernel.LAUNCHES
+    launches_v1, launches_ab = launch_count(K2), launch_count(K1)
     log(f"[5 A/B] K1 launches {launches_ab}, K2 launches {launches_v1}")
     if list(rows) != ["k1", "k2", "plain"]:
         raise AssertionError(f"ldpc_bench ran {list(rows)}")
@@ -1939,14 +1940,14 @@ def main() -> int:
     zero_counts()
     rows16 = ldpc_bench.run(bench16)
     torch.cuda.synchronize()
-    launches_ab16 = {name: getattr(ldpc_kernel, name) for name in COUNTS}
-    log(f"[5 A/B] launches in the bf16 run: K1 {launches_ab16['LAUNCHES']}, K1 bf16 "
-        f"{launches_ab16['LAUNCHES_BF16']}, K2 {launches_ab16['LAUNCHES_V1']}, K2 bf16 "
-        f"{launches_ab16['LAUNCHES_V1_BF16']}")
+    launches_ab16 = {name: launch_count(name) for name in COUNTS}
+    log(f"[5 A/B] launches in the bf16 run: K1 {launches_ab16[K1]}, K1 bf16 "
+        f"{launches_ab16[K1_BF16]}, K2 {launches_ab16[K2]}, K2 bf16 "
+        f"{launches_ab16[K2_BF16]}")
     if list(rows16) != ["k1", "k2", "plain"]:
         raise AssertionError(f"ldpc_bench --precision bf16 ran {list(rows16)}")
-    if (launches_ab16["LAUNCHES"] or launches_ab16["LAUNCHES_V1"]
-            or launches_ab16["LAUNCHES_BF16"] < 1 or launches_ab16["LAUNCHES_V1_BF16"] < 1):
+    if (launches_ab16[K1] or launches_ab16[K2]
+            or launches_ab16[K1_BF16] < 1 or launches_ab16[K2_BF16] < 1):
         raise AssertionError("ldpc_bench --precision bf16 did not launch the two bf16 builds "
                              "alone")
     for name in ("k1", "k2"):
@@ -1973,12 +1974,12 @@ def main() -> int:
         if not ok_rt or decoded[: len(data)] != data:
             raise AssertionError(f"LDPCCodec({rate}) on the card: round trip failed")
     log(f"[6 serving] LDPCCodec round trip on the card for {len(CODE_PARAMS)} rates, "
-        f"K1 launches {ldpc_kernel.LAUNCHES}")
+        f"K1 launches {launch_count(K1)}")
     llr = bpsk_llrs("R1_2", 5, 4, 10 ** (1.2 / 20))
-    before = ldpc_kernel.LAUNCHES
+    before = launch_count(K1)
     got = L.decode_with_retries(llr, "R1_2", device=dev)
     torch.cuda.synchronize()
-    retry_launches = ldpc_kernel.LAUNCHES - before
+    retry_launches = launch_count(K1) - before
     n_bad, err = compare(L.decode_with_retries(llr, "R1_2", device="cpu"), got)
     log(f"[6 serving] decode_with_retries R1/2 B=4: success {int(got.success.sum())}/4, "
         f"K1 launches {retry_launches}, rows differing from the CPU port {n_bad}, "
@@ -2304,7 +2305,7 @@ def main() -> int:
         "K1 bf16", "ldpc_bp_bf16", "ria_tpu_torch/csrc/ldpc_bp_bf16.cu",
         "ria_tpu/fec/ldpc_pallas.py:39", profile["launches"][1],
         {"bf16 path": profile["launches"][1],
-         "ldpc_bench --precision bf16": launches_ab16["LAUNCHES_BF16"] / rows16["k1"].calls,
+         "ldpc_bench --precision bf16": launches_ab16[K1_BF16] / rows16["k1"].calls,
          "bench k1_bf16 row": (bench_run["launches"]["k1_bf16"]["k1_bf16"]
                                / bench_run["launches"]["k1_bf16"]["calls"])}))
     # K2's bf16 build: launched by ``ldpc_bench --precision bf16`` (phase 5)
@@ -2313,13 +2314,13 @@ def main() -> int:
     # main path's is this build's own.
     by_path = dict(kernels[1]["launches_per_call_by_path"])
     by_path["mc_dpsk"] = launches_v1_main[1]
-    by_path["ldpc_bench --precision bf16"] = (launches_ab16["LAUNCHES_V1_BF16"]
+    by_path["ldpc_bench --precision bf16"] = (launches_ab16[K2_BF16]
                                               / rows16["k2"].calls)
     if any(n for path, n in by_path.items() if path != "ldpc_bench --precision bf16"):
         raise AssertionError(f"K2's bf16 build launched off the A/B entry point: {by_path}")
     kernels.append(bf16_entry(
         "K2 bf16", "ldpc_bp_v1_bf16", "ria_tpu_torch/csrc/ldpc_bp_v1_bf16.cu",
-        "ria_tpu/fec/ldpc_pallas.py:218", launches_ab16["LAUNCHES_V1_BF16"], by_path))
+        "ria_tpu/fec/ldpc_pallas.py:218", launches_ab16[K2_BF16], by_path))
     kernels[-1]["launches_per_call"] = by_path["ldpc_bench --precision bf16"]
     for kernel, name in zip(kernels, ("K1", "K2", "K1 bf16", "K2 bf16")):
         kernel["serial_floor_us_per_iteration"] = floor[name][0] / 50

@@ -11,21 +11,12 @@
   rounding of its operands and its factor to bfloat16
   (``csrc/ldpc_bp_v1_bf16.cu``).
 
-The same build carries the chirp search's window pass
-(``csrc/zoom_front.cu``, bound by ``ria_tpu_torch/sync/zoom_kernel.py``)
-and the Schmidl-Cox search's kernels (``csrc/sc_search.cu``, bound by
-``ria_tpu_torch/sync/sc_kernel.py``), both through :func:`kernel`, so that
-one parallel ``nvcc`` run builds every kernel of the port.
-
-Each source is compiled with ``nvcc`` for ``sm_90a`` into its own shared
-library with a plain C interface, on first use, under ``build/ria_tpu_torch/``
-at the root of the checkout; :func:`build` starts one ``nvcc`` per missing
-library, all at once.  A library's name carries a hash of its source and the
-flags, so an edited source rebuilds; deleting the directory forces a rebuild.
-The libraries are loaded with ``ctypes`` and launch on PyTorch's current
-stream.  Each build has its own host tables (:func:`k1_layout` and
-:func:`k2_layout` of its precision): the bf16 builds store their messages
-as bfloat16, 8 to a 16-byte cell, where the float32 ones store 4.
+Each build is a library of ``utils/cuda_kernels.py``, compiled on its first
+load, and launches through its launch helper on PyTorch's current stream,
+counted by C entry point (``cuda_kernels.launches("ldpc_bp_decode")``, ...).
+Each build has its own host tables (:func:`k1_layout` and :func:`k2_layout`
+of its precision): the bf16 builds store their messages as bfloat16, 8 to a
+16-byte cell, where the float32 ones store 4.
 
 Nothing here runs at import time: this module imports on a host with no
 CUDA toolkit and no card.  Both wrappers take CUDA tensors only; the plain
@@ -34,69 +25,24 @@ PyTorch decoders for CPU tensors are in ``ria_tpu_torch.fec.ldpc``.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-import time
-from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from ria_tpu_torch.utils import cuda_kernels
 from ria_tpu_torch.utils.trace import span
-
-# Kernel launches since start-up (or since a caller last reset them).  Counted
-# only where each kernel is launched, so a run can show that it went through
-# K1's float32 build (LAUNCHES), its bf16-operand build (LAUNCHES_BF16), K2's
-# float32 build (LAUNCHES_V1) or K2's bf16-operand build (LAUNCHES_V1_BF16).
-# Stations decode from threads of their own (``sim/continuous.py``), so each
-# count moves under ``_COUNT_LOCK``.
-LAUNCHES = 0
-LAUNCHES_BF16 = 0
-LAUNCHES_V1 = 0
-LAUNCHES_V1_BF16 = 0
-_COUNT_LOCK = threading.Lock()
-# One build at a time in a process, and one library load: two threads whose
-# first decode lands together must not start two compiles of one library.
-_BUILD_LOCK = threading.Lock()
-_LOAD_LOCK = threading.Lock()
-_LIBRARIES: dict[str, ctypes.CDLL] = {}
-_ENTRIES: dict = {}
 
 K1_THREADS = 512  # threads per K1 block: kThreads in csrc/ldpc_bp.cu
 K2_THREADS = 512  # threads per K2 block: kThreads in csrc/ldpc_bp_v1.cu
 
-_CSRC = Path(__file__).resolve().parents[1] / "csrc"
-_SOURCE = _CSRC / "ldpc_bp.cu"
-_SOURCE_BF16 = _CSRC / "ldpc_bp_bf16.cu"
-_SOURCE_V1 = _CSRC / "ldpc_bp_v1.cu"
-_SOURCE_V1_BF16 = _CSRC / "ldpc_bp_v1_bf16.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ria_tpu_torch"
-_NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Each library: (source, extra nvcc flags).  The decoders' C entry points are
-# named after the source (``ria_<stem>_decode``, ``ria_<stem>_resources``),
-# the other kernels' ``ria_<entry>`` (:func:`kernel`).  ``zoom_front`` and
-# ``sc_search`` link the shared CUDA runtime, the one PyTorch has loaded: the
-# first kernel of a chain call opens ``rx.sync``'s device-side range in a
-# profile, and a profile taken late in a process missed launches made through
-# a runtime linked into the library itself (torch 2.11, an NVIDIA H100).
-LIBRARIES = {
-    "ldpc_bp": (_SOURCE, ()),
-    "ldpc_bp_bf16": (_SOURCE_BF16, ()),
-    "ldpc_bp_v1": (_SOURCE_V1, ()),
-    "ldpc_bp_v1_bf16": (_SOURCE_V1_BF16, ()),
-    "zoom_front": (_CSRC / "zoom_front.cu", ("-cudart", "shared")),
-    "sc_search": (_CSRC / "sc_search.cu", ("-cudart", "shared")),
-}
-# Each kernel's library for each precision.
+# Each kernel's library (of ``cuda_kernels.LIBRARIES``) for each precision.
 K1_LIBRARY = {"f32": "ldpc_bp", "bf16": "ldpc_bp_bf16"}
 K2_LIBRARY = {"f32": "ldpc_bp_v1", "bf16": "ldpc_bp_v1_bf16"}
+# Each build's C entry point ``ria_<library>_decode``: 9 pointers, 8 ints.
+_DECODERS = {lib: cuda_kernels.Kernel(lib, f"{lib}_decode", 9, 8)
+             for lib in (*K1_LIBRARY.values(), *K2_LIBRARY.values())}
 
 
 def csc_tables(row_idx: np.ndarray, row_mask: np.ndarray,
@@ -475,148 +421,32 @@ def k2_tables(layout: K2Layout, row: torch.Tensor, epos: torch.Tensor,
     return K2Tables(row, epos, jobs, layout.slots, layout.stride, n, layout.precision)
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-
-    nvcc = os.path.join(CUDA_HOME, "bin", "nvcc") if CUDA_HOME else shutil.which("nvcc")
-    if not nvcc or not os.path.exists(nvcc):
-        raise RuntimeError("nvcc not found: the LDPC kernels need the CUDA toolkit to build")
-    return nvcc
+def _decoder(lib: str) -> cuda_kernels.Kernel:
+    """Decoder library ``lib``'s entry point, the library loaded."""
+    _library(lib)
+    return _DECODERS[lib]
 
 
-def library_path(source: Path | None = None, defines: tuple[str, ...] = ()) -> Path:
-    """Path of the built library for ``source`` (default K1's), the flags and
-    any extra ``defines`` (``-DNAME=VALUE``)."""
-    source = _SOURCE if source is None else source
-    flags = " ".join((*_NVCC_FLAGS, *defines))
-    digest = hashlib.sha256(source.read_bytes() + flags.encode())
-    return BUILD_DIR / f"{source.stem}_{digest.hexdigest()[:16]}.so"
+def _library(name: str):
+    """Decoder library ``name`` (``ctypes``), compiled if it is missing and
+    loaded.  The first load of a K1 build is set-up: the span
+    ``setup.k1_library``."""
+    if name in K1_LIBRARY.values() and not cuda_kernels.loaded(name):
+        with span("setup.k1_library"):
+            return cuda_kernels.load(name)
+    return cuda_kernels.load(name)
 
 
-class Build(NamedTuple):
-    path: Path
-    log: str         # nvcc's output; empty when the library was already built
-    seconds: float   # wall time of the compile; 0 when already built
-
-
-def compile_libraries(sources: dict[str, tuple[Path, tuple[str, ...]]]) -> dict[str, Build]:
-    """Compile each ``name: (source, defines)`` whose library is missing, one
-    ``nvcc`` per library, all started together.  Raises with nvcc's output
-    when a compile fails.  One call at a time in a process; each compile
-    writes a temporary named by process and thread and moves it into place,
-    so processes building the same library at once each leave it whole."""
-    with _BUILD_LOCK:
-        return _compile_missing(sources)
-
-
-def _compile_missing(sources: dict[str, tuple[Path, tuple[str, ...]]]) -> dict[str, Build]:
-    results, procs = {}, {}
-    missing = {name for name, (src, defs) in sources.items()
-               if not library_path(src, defs).exists()}
-    nvcc = _nvcc() if missing else ""
-    for name, (source, defines) in sources.items():
-        out = library_path(source, defines)
-        if name not in missing:
-            results[name] = Build(out, "", 0.0)
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-        proc = subprocess.Popen([nvcc, *_NVCC_FLAGS, *defines, "-o", str(tmp), str(source)],
-                                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-        procs[name] = (proc, tmp, out, time.perf_counter())
-    failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed on {sources[name][0].name} ({proc.returncode}):\n{log}")
-            continue
-        os.replace(tmp, out)
-        results[name] = Build(out, log, time.perf_counter() - t0)
-    if failed:
-        raise RuntimeError("\n".join(failed))
-    return results
-
-
-def build() -> dict[str, Build]:
-    """Compile every library of :data:`LIBRARIES` that is missing, all at
-    once.  Returns ``{"ldpc_bp": ..., "ldpc_bp_bf16": ..., "ldpc_bp_v1": ...,
-    "ldpc_bp_v1_bf16": ..., "zoom_front": ..., "sc_search": ...}``."""
-    return compile_libraries(dict(LIBRARIES))
-
-
-# Pointer and int arguments of each C entry point (then the stream): a
-# decoder's by the stem of its source, another kernel's by its entry's name.
-_ARGS = {"ldpc_bp": (9, 8), "ldpc_bp_bf16": (9, 8), "ldpc_bp_v1": (9, 8),
-         "ldpc_bp_v1_bf16": (9, 8), "zoom_front": (4, 3),
-         "sc_pad": (2, 5), "sc_coarse": (7, 12), "sc_slice": (3, 5), "sc_pick": (7, 11),
-         "sc_decide": (9, 1)}
-
-
-def _library(name: str) -> ctypes.CDLL:
-    with _LOAD_LOCK:
-        if name not in _LIBRARIES:
-            # The first load of a K1 build, with the compile of any missing
-            # library, is set-up: the span ``setup.k1_library``.
-            k1 = name in K1_LIBRARY.values()
-            with span("setup.k1_library") if k1 else contextlib.nullcontext():
-                _LIBRARIES[name] = ctypes.CDLL(str(build()[name].path))
-        return _LIBRARIES[name]
-
-
-def entry_point(lib: ctypes.CDLL, name: str):
-    """Decoder ``name``'s C entry point in ``lib``, with its argument types."""
-    return _typed(getattr(lib, f"ria_{name}_decode"), name)
-
-
-def kernel_entry_point(lib: ctypes.CDLL, name: str):
-    """The C entry point ``ria_<name>`` of a kernel that is not a decoder
-    (``zoom_front``, ``sc_coarse``, ...) in ``lib``, with its argument types."""
-    return _typed(getattr(lib, f"ria_{name}"), name)
-
-
-def _typed(fn, name: str):
-    """``fn`` with the argument types of ``_ARGS[name]``: a pointer for each
-    pointer and for the stream, an int for each int; returns an int (the
-    launch's cudaError_t)."""
-    ptrs, ints = _ARGS[name]
-    fn.argtypes = [ctypes.c_void_p] * ptrs + [ctypes.c_int] * ints + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _entry(name: str):
-    lib = _library(name)
-    with _LOAD_LOCK:
-        if name not in _ENTRIES:
-            _ENTRIES[name] = entry_point(lib, LIBRARIES[name][0].stem)
-        return _ENTRIES[name]
-
-
-def kernel(name: str, library: str | None = None):
-    """The C entry point ``ria_<name>`` of a kernel that is not a decoder
-    (:func:`kernel_entry_point`) in ``library`` (by default the library named
-    ``name``), every missing library built and this one loaded on the first
-    call."""
-    lib = _library(library or name)
-    with _LOAD_LOCK:
-        if name not in _ENTRIES:
-            _ENTRIES[name] = kernel_entry_point(lib, name)
-        return _ENTRIES[name]
-
-
-def resources(lib: ctypes.CDLL, name: str, n: int, slots: int) -> dict[str, int]:
-    """What kernel ``name`` (the stem of its source) of ``lib`` uses on the
-    current card for a code of n variables and ``slots`` message slots:
+def resources(lib, name: str, n: int, slots: int) -> dict[str, int]:
+    """What kernel ``name`` (the stem of its source) of library ``lib`` uses
+    on the current card for a code of n variables and ``slots`` message slots:
     registers and local (spill) bytes per thread, shared bytes per block and
     blocks resident per SM, from the CUDA runtime."""
     fn = getattr(lib, f"ria_{name}_resources")
     fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * 4)()
-    err = fn(n, slots, ctypes.addressof(out))
-    if err != 0:
-        raise RuntimeError(f"ria_{name}_resources failed: CUDA error {err}")
+    cuda_kernels.check(fn(n, slots, ctypes.addressof(out)), f"ria_{name}_resources")
     return dict(zip(("registers", "local_bytes", "shared_bytes", "blocks_per_sm"), out))
 
 
@@ -632,14 +462,14 @@ def k1_resources(n: int, slots: int, precision: str = "f32") -> dict[str, int]:
     """:func:`resources` of K1's build of ``precision`` (``slots`` of its
     tables)."""
     lib = _library_for(K1_LIBRARY, precision)
-    return resources(_library(lib), LIBRARIES[lib][0].stem, n, slots)
+    return resources(_library(lib), lib, n, slots)
 
 
 def k2_resources(n: int, slots: int, precision: str = "f32") -> dict[str, int]:
     """:func:`resources` of K2's build of ``precision`` (``slots`` of its
     tables)."""
     lib = _library_for(K2_LIBRARY, precision)
-    return resources(_library(lib), LIBRARIES[lib][0].stem, n, slots)
+    return resources(_library(lib), lib, n, slots)
 
 
 def _check(t: torch.Tensor, name: str, dtype: torch.dtype, shape: tuple,
@@ -661,21 +491,12 @@ def bp_decode(llrs: torch.Tensor, factors: torch.Tensor, tables: K1Tables,
     llrs [B, n] f32 and factors [B] f32, contiguous, on the device of
     ``tables`` (:func:`k1_tables`).  Outputs: info_bits [B, k] uint8,
     success [B] bool, iterations [B] int32, llr_total [B, n] f32.
-    ``precision`` picks the build: ``"f32"`` (counted in ``LAUNCHES``) or
-    ``"bf16"``, bfloat16 operands (``LAUNCHES_BF16``); ``tables`` must be
-    that build's.
+    ``precision`` picks the build: ``"f32"`` or ``"bf16"``, bfloat16
+    operands; ``tables`` must be that build's.
     """
-    global LAUNCHES, LAUNCHES_BF16
     lib = _library_for(K1_LIBRARY, precision)
     name = "K1" if precision == "f32" else "K1 bf16"
-    out, launched = launch(lambda: _entry(lib), name, llrs, factors, tables, k, max_iters,
-                           precision)
-    with _COUNT_LOCK:
-        if precision == "f32":
-            LAUNCHES += launched
-        else:
-            LAUNCHES_BF16 += launched
-    return out
+    return launch(lambda: _decoder(lib), name, llrs, factors, tables, k, max_iters, precision)
 
 
 def bp_decode_v1(llrs: torch.Tensor, factors: torch.Tensor, tables: K2Tables,
@@ -683,31 +504,22 @@ def bp_decode_v1(llrs: torch.Tensor, factors: torch.Tensor, tables: K2Tables,
     """Launch K2 on CUDA tensors: (info_bits, success, iterations, llr_total).
 
     Arguments and outputs as :func:`bp_decode`, with K2's tables
-    (:func:`k2_tables`).  ``precision`` picks the build: ``"f32"`` (counted
-    in ``LAUNCHES_V1``) or ``"bf16"``, the TPU kernel's bfloat16 operands
-    and factor (``LAUNCHES_V1_BF16``); ``tables`` must be that build's.
+    (:func:`k2_tables`).  ``precision`` picks the build: ``"f32"`` or
+    ``"bf16"``, the TPU kernel's bfloat16 operands and factor; ``tables``
+    must be that build's.
     """
-    global LAUNCHES_V1, LAUNCHES_V1_BF16
     lib = _library_for(K2_LIBRARY, precision)
     name = "K2" if precision == "f32" else "K2 bf16"
-    out, launched = launch(lambda: _entry(lib), name, llrs, factors, tables, k, max_iters,
-                           precision)
-    with _COUNT_LOCK:
-        if precision == "f32":
-            LAUNCHES_V1 += launched
-        else:
-            LAUNCHES_V1_BF16 += launched
-    return out
+    return launch(lambda: _decoder(lib), name, llrs, factors, tables, k, max_iters, precision)
 
 
 def launch(entry, kernel: str, llrs: torch.Tensor, factors: torch.Tensor,
            tables: K1Tables | K2Tables, k: int, max_iters: int, precision: str):
     """Check ``llrs``, ``factors`` and that ``tables`` are those of the
-    ``precision`` build, and launch the C entry point that ``entry()``
-    returns (:func:`entry_point`; asked for only once the inputs passed, so
-    a CPU tensor raises before anything is built) on them with ``tables``.
-    Returns the outputs and the number of launches (0 for an empty batch).
-    Counts nothing: the wrappers of the port's kernels do."""
+    ``precision`` build, and launch the :class:`cuda_kernels.Kernel` that
+    ``entry()`` returns (asked for only once the inputs passed, so a CPU
+    tensor raises before anything is built) on them with ``tables``.
+    Returns the outputs; an empty batch launches nothing."""
     if tables.precision != precision:
         raise ValueError(f"{kernel}: tables built for precision {tables.precision!r}, "
                          f"not the {precision!r} build's")
@@ -720,22 +532,12 @@ def launch(entry, kernel: str, llrs: torch.Tensor, factors: torch.Tensor,
         llrs = llrs.clone()
     B, n = llrs.shape
     D, m = tables.row.shape
-    out = _outputs(llrs, k)
-    if not B:  # an empty batch launches nothing
-        return out, 0
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    args = (llrs.data_ptr(), factors.data_ptr(), tables.row.data_ptr(), tables.epos.data_ptr(),
-            tables.jobs.data_ptr(), *_out_ptrs(out), B, n, m, k, D, tables.slots,
-            tables.stride, max_iters, stream)
-    fn = entry()
-    if dev.index == torch.cuda.current_device():
-        err = fn(*args)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{kernel} launch failed: CUDA error {err}")
-    return out, 1
+    out = info, success, iters, llr_total = _outputs(llrs, k)
+    if B:  # an empty batch launches nothing
+        cuda_kernels.launch(entry(), llrs, factors, tables.row, tables.epos, tables.jobs,
+                            llr_total, info, success, iters, B, n, m, k, D, tables.slots,
+                            tables.stride, max_iters)
+    return out
 
 
 def _outputs(llrs: torch.Tensor, k: int):
@@ -746,10 +548,3 @@ def _outputs(llrs: torch.Tensor, k: int):
             torch.empty(B, dtype=torch.bool, device=dev),
             torch.empty(B, dtype=torch.int32, device=dev),
             torch.empty_like(llrs))
-
-
-def _out_ptrs(out) -> tuple[int, int, int, int]:
-    """The outputs' pointers in the C entry points' order: llr_total,
-    info_bits, success, iterations."""
-    info, success, iters, llr_total = out
-    return llr_total.data_ptr(), info.data_ptr(), success.data_ptr(), iters.data_ptr()

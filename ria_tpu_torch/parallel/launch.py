@@ -95,9 +95,9 @@ def launch(target, world_size: int, args: tuple = (), rank_args=None,
     no result; every rank is ended either way."""
     dev = resolve_device(device)
     if dev.type == "cuda":
-        from ria_tpu_torch.fec import ldpc_kernel
+        from ria_tpu_torch.utils import cuda_kernels
 
-        ldpc_kernel.build()
+        cuda_kernels.build()
     backend = backend or distributed.choose_backend(dev, world_size)
     rank_args = rank_args or [()] * world_size
     if len(rank_args) != world_size:

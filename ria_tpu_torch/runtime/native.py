@@ -7,11 +7,9 @@ TCP server, all host code in C++.  The source is the repository's own
 package, and a second copy would drift).
 
 The library is built on first use with ``g++ -O2 -shared -fPIC -std=c++17``
-into ``build/ria_tpu_torch/`` at the root of the checkout, named by a hash of
-the source and the flags, so an edited source rebuilds.  One build at a time
-in a process (a lock); each build writes a temporary named by process and
-thread and moves it into place, so processes that build at once each leave
-the library whole.  :func:`require` loads the library or raises with g++'s
+through ``utils/native_build.py`` (into ``build/ria_tpu_torch/`` at the root of
+the checkout, named by a hash of the source and the flags, so an edited
+source rebuilds).  :func:`require` loads the library or raises with g++'s
 output; :func:`available` says whether it loads (``HostInterface(backend=
 "auto")`` and ``AudioEngine`` pick the native path with it).  Nothing is
 built at import time.
@@ -20,68 +18,25 @@ built at import time.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 import threading
-import time
 from pathlib import Path
-from typing import NamedTuple
 
 import numpy as np
 
-_ROOT = Path(__file__).resolve().parents[2]
-_SRC = _ROOT / "native" / "ria_native.cpp"
-BUILD_DIR = _ROOT / "build" / "ria_tpu_torch"
+from ria_tpu_torch.utils import native_build
+
+_SRC = Path(__file__).resolve().parents[2] / "native" / "ria_native.cpp"
 _CXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 _LOCK = threading.Lock()
 _lib = None
 _error: str | None = None
 
 
-class Build(NamedTuple):
-    path: Path
-    log: str         # g++'s output; empty when the library was already built
-    seconds: float   # wall time of the compile; 0 when already built
-
-
-def library_path() -> Path:
-    """Path of the built library for the current source and flags."""
-    digest = hashlib.sha256(_SRC.read_bytes() + " ".join(_CXX_FLAGS).encode())
-    return BUILD_DIR / f"ria_native_{digest.hexdigest()[:16]}.so"
-
-
-def _compiler() -> str:
-    cxx = shutil.which("g++")
-    if cxx is None:
-        raise RuntimeError("g++ not found: the native runtime library needs a C++ compiler")
-    return cxx
-
-
-def build() -> Build:
+def build() -> native_build.Build:
     """Compile the library if it is missing; raises with g++'s output when
     the compile fails."""
-    with _LOCK:
-        return _build()
-
-
-def _build() -> Build:
-    out = library_path()
-    if out.exists():
-        return Build(out, "", 0.0)
-    cxx = _compiler()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.stem}.{os.getpid()}.{threading.get_ident()}.tmp.so")
-    t0 = time.perf_counter()
-    proc = subprocess.run([cxx, *_CXX_FLAGS, str(_SRC), "-o", str(tmp)],
-                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-                          timeout=300)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"g++ failed on {_SRC.name} ({proc.returncode}):\n{proc.stdout}")
-    os.replace(tmp, out)
-    return Build(out, proc.stdout, time.perf_counter() - t0)
+    return native_build.compile_libraries("g++", {"ria_native": (_SRC, _CXX_FLAGS)},
+                                          timeout=300)["ria_native"]
 
 
 def require() -> ctypes.CDLL:
@@ -95,8 +50,8 @@ def require() -> ctypes.CDLL:
         if _error is not None:
             raise RuntimeError(_error)
         try:
-            _lib = _declare(ctypes.CDLL(str(_build().path)))
-        except (RuntimeError, OSError, subprocess.SubprocessError) as e:
+            _lib = _declare(ctypes.CDLL(str(build().path)))
+        except (RuntimeError, OSError) as e:
             _error = f"native library unavailable: {e}"
             raise RuntimeError(_error) from e
         return _lib

@@ -24,8 +24,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ria_tpu_torch.dsp.util import _sliding
 from ria_tpu_torch.utils.device import resolve_device
-from ria_tpu_torch.wave.ofdm import _sliding
 
 CSS_PING, CSS_PONG, CSS_DATA, CSS_CONTROL, CSS_UNKNOWN = 0, 1, 2, 3, 255
 

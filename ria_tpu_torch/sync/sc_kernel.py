@@ -14,39 +14,38 @@ rows probed on the card, and the tests hold B = 1 on the five outputs.)
 That order is torch's private code: ``tests/test_torch_sc_kernel.py`` holds
 the installed ATen header's text of it to the text this follows.
 
-The library is built by ``fec.ldpc_kernel.build`` together with the
-decoders' and loaded with ``ctypes``; the kernels launch on PyTorch's current
-stream.  Nothing here runs at import time: this module imports on a host
-with no CUDA toolkit and no card.
+The library ``sc_search`` of ``utils/cuda_kernels.py`` is compiled on its
+first load; the kernels launch on PyTorch's current stream, each once per
+search of a non-empty batch (``cuda_kernels.launches("sc_coarse")`` counts
+the searches).  Nothing here runs at import time: this module imports on a
+host with no CUDA toolkit and no card.
 """
 
 from __future__ import annotations
 
-import contextlib
 import functools
-import threading
 from typing import NamedTuple
 
 import torch
 
 from ria_tpu_torch.dsp.hilbert import analytic_signal
-from ria_tpu_torch.fec import ldpc_kernel
+from ria_tpu_torch.utils import cuda_kernels
 from ria_tpu_torch.utils.trace import span
 
-# Searches since start-up (or since a caller last reset it): one per search
-# run on the card, so a run can show that it went through the kernels.
-# Stations search from threads of their own, so it moves under a lock.
-LAUNCHES = 0
-_COUNT_LOCK = threading.Lock()
-_LIBRARY = "sc_search"
+# The C entry points: pointer and int arguments of each (then the stream).
+_KERNELS = {name: cuda_kernels.Kernel("sc_search", name, ptrs, ints)
+            for name, (ptrs, ints) in {"sc_pad": (2, 5), "sc_coarse": (7, 12),
+                                       "sc_slice": (3, 5), "sc_pick": (7, 11),
+                                       "sc_decide": (9, 1)}.items()}
 _DEC = 8          # samples a group: ``_SC_DEC`` of wave/ofdm.py, kDec of the source
 _SMEM_SLACK = 1024  # bytes of shared memory a block keeps for its static arrays
 
 
 def load() -> None:
-    """Build the kernels' libraries if any is missing and load this one, so
-    that the first search pays for neither."""
-    ldpc_kernel.kernel("sc_coarse", _LIBRARY)
+    """Compile the kernels' library if it is missing and load it, so that
+    the first search pays for neither."""
+    for kernel in _KERNELS.values():
+        kernel.fn()
 
 
 def scan_log_threads(num_rows: int, row_size: int) -> int:
@@ -120,17 +119,7 @@ def _plan(B: int, n: int, fft_size: int, cp_len: int, sym: int, L: int, R: int,
 
 
 def _call(entry: str, *args) -> None:
-    fn = ldpc_kernel.kernel(entry, _LIBRARY)
-    err = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args))
-    if err != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {err}")
-
-
-def _on_card(x: torch.Tensor) -> contextlib.AbstractContextManager:
-    """The tensor's card as the current device, for its launches."""
-    if x.device.index == torch.cuda.current_device():
-        return contextlib.nullcontext()
-    return torch.cuda.device(x.device)
+    cuda_kernels.launch(_KERNELS[entry], *args)
 
 
 def search(det, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -140,7 +129,6 @@ def search(det, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
     as ``det.search_plain`` returns them.  Refuses, before anything is built
     or launched, a tensor that is not 2-D float32 on a card of the detector's
     window."""
-    global LAUNCHES
     if x.dim() != 2 or x.dtype != torch.float32:
         raise TypeError(f"x must be a 2-D torch.float32 tensor, got {x.dtype} {tuple(x.shape)}")
     if det.short or x.shape[1] != det.n:
@@ -152,11 +140,7 @@ def search(det, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
         raise ValueError(f"the detector is on {det.rot.device}, x on {x.device}")
     if x.stride(-1) != 1:
         x = x.contiguous()
-    with _on_card(x):
-        out = _search(det, x)
-    with _COUNT_LOCK:
-        LAUNCHES += 1
-    return out
+    return _search(det, x)
 
 
 def _search(det, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
@@ -170,7 +154,6 @@ def _search(det, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
     ld = x.stride(0) if B > 1 else n
     sym, L, R, nfft = cfg.symbol_samples, det.L, det.R, det.nfft
     plan = _plan(B, n, cfg.fft_size, cfg.cp_len, sym, L, R, _smem_limit(dev.index))
-    stream = torch.cuda.current_stream(dev).cuda_stream
     # Each row's outputs: peak, lts_pos, lts_start; peak_val, cfo, lts_val, cfo_hz.
     ints = torch.empty((3, B), dtype=torch.int32, device=dev)
     floats = torch.empty((4, B), dtype=torch.float32, device=dev)
@@ -181,21 +164,21 @@ def _search(det, x: torch.Tensor) -> tuple[torch.Tensor, ...]:
     # keeps a device-side range over all of it (the decision closes it).
     slc = torch.empty((B, nfft), dtype=torch.complex64, device=dev)
     seg = torch.empty((B, plan.seg_nfft), dtype=torch.float32, device=dev)
-    _call("sc_pad", slc, seg, B, R, nfft, plan.seg_len, plan.seg_nfft, stream)
+    _call("sc_pad", slc, seg, B, R, nfft, plan.seg_len, plan.seg_nfft)
     with span("sync.coarse"):
         row_bytes, smem = plan.coarse[-2:]
         scratch = 0 if smem else torch.empty(B * row_bytes, dtype=torch.uint8, device=dev)
         _call("sc_coarse", x, det.rot, det.sc_consts, peak, peak_val, cfo, scratch, B, n, ld,
-              *plan.coarse, stream)
+              *plan.coarse)
     with span("sync.fine"):
-        _call("sc_slice", x, peak, slc, B, n, ld, R, nfft, stream)
+        _call("sc_slice", x, peak, slc, B, n, ld, R, nfft)
         xc = torch.fft.ifft(torch.fft.fft(slc, nfft) * det.lts_fft)
         _call("sc_pick", x, xc, peak, det.sc_consts, lts_pos, lts_val, seg, B, n, ld, R, L, sym,
-              nfft, plan.seg_len, plan.seg_nfft, *plan.pick, stream)
+              nfft, plan.seg_len, plan.seg_nfft, *plan.pick)
         segz = analytic_signal(seg)
         r = torch.sum(segz[:, :L] * torch.conj(segz[:, sym : sym + L]), dim=-1)
     detected = torch.empty(B, dtype=torch.bool, device=dev)
     _call("sc_decide", r, peak_val, cfo, lts_pos, lts_val, det.sc_consts, detected, lts_start,
-          cfo_hz, B, stream)
+          cfo_hz, B)
     return detected, lts_start, cfo_hz, peak_val, lts_val
 

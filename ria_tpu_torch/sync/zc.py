@@ -34,9 +34,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ria_tpu_torch.dsp.util import _cis, _first_true, _rdiv, _sliding
 from ria_tpu_torch.sync.chirp import _next_pow2
 from ria_tpu_torch.utils.device import resolve_device
-from ria_tpu_torch.wave.ofdm import _cis, _first_true, _rdiv, _sliding
 
 ZC_DEFAULT_DETECT_THRESHOLD = 0.3
 ZC_REP1_ADJUST_THRESHOLD = 0.4

@@ -69,10 +69,10 @@ import numpy as np
 import torch
 
 from ria_tpu_torch.entry import RATE, bench_batches, geometry, ofdm_geometry
-from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.fec.ldpc import decode_batch, make_decoder, make_decoder_vf
 from ria_tpu_torch.fec.ldpc_matrix import MIN_SUM_FACTOR
 from ria_tpu_torch.phy.pipeline import make_ofdm_rx_pipeline, make_rx_pipeline
+from ria_tpu_torch.utils.cuda_kernels import launches
 from ria_tpu_torch.utils.device import resolve_device
 
 ITERS = 60               # calls a chain trial (bench.py:286, :298)
@@ -155,8 +155,8 @@ def bench_chain(rx, variants: list[torch.Tensor], iters: int = ITERS, trials: in
 def _counts() -> dict[str, int]:
     """The kernels' launch counts: K1's float32 build, its bf16 build, K2
     (either build)."""
-    return {"k1": ldpc_kernel.LAUNCHES, "k1_bf16": ldpc_kernel.LAUNCHES_BF16,
-            "k2": ldpc_kernel.LAUNCHES_V1 + ldpc_kernel.LAUNCHES_V1_BF16}
+    return {"k1": launches("ldpc_bp_decode"), "k1_bf16": launches("ldpc_bp_bf16_decode"),
+            "k2": launches("ldpc_bp_v1_decode") + launches("ldpc_bp_v1_bf16_decode")}
 
 
 def _launched(before: dict[str, int], calls: int) -> dict[str, int]:

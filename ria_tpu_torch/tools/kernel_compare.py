@@ -33,7 +33,7 @@ for bit.
 The later kernel is the checkout's.  ``--define NAME=VALUE`` (repeatable)
 builds it with those macros, in a library of its own: the ``K2_*``
 switches of ``csrc/ldpc_bp_v1.cu`` each turn one lever of its design off.
-Every library is built with the flags of ``ldpc_kernel.build`` (ptxas'
+Every library is built with the flags of ``cuda_kernels.build`` (ptxas'
 resource lines are printed), and each kernel's registers, spill, shared
 bytes and blocks per SM as the CUDA runtime reports them (the earlier one's
 where its library has the entry point).  Where the toolkit has
@@ -72,6 +72,7 @@ from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.fec.ldpc import DecodeResult, ldpc_decoder
 from ria_tpu_torch.fec.ldpc_matrix import CODE_PARAMS, encode_np, get_code
 from ria_tpu_torch.tools import ldpc_bench
+from ria_tpu_torch.utils import cuda_kernels
 from ria_tpu_torch.utils.timing import kernel_us
 
 FACTORS = np.array([0.9375, 0.875, 0.75, 0.625, 0.5], np.float32)
@@ -88,7 +89,7 @@ INTERFACES = ("lists", "tables")
 BEFORE_DEFINES = {"f32": (), "bf16": ("-DRIA_BF16_OPERANDS",)}
 
 
-def _print_ptxas(tag: str, b: ldpc_kernel.Build) -> None:
+def _print_ptxas(tag: str, b: cuda_kernels.Build) -> None:
     if b.log:
         print(f"built {tag} in {b.seconds:.2f} s")
     for line in b.log.splitlines():
@@ -102,10 +103,8 @@ def _before_decoder(lib: ctypes.CDLL, kernel: str, interface: str, rate: str,
     or through today's on the float32 tables."""
     name, _, lists = KERNELS[kernel]
     if interface == "tables":
-        return _table_decoder(ldpc_kernel.entry_point(lib, name), kernel, rate, "f32", dev)
-    fn = getattr(lib, f"ria_{name}_decode")
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+        return _table_decoder(_entry(lib, name, 9, 8), kernel, rate, "f32", dev)
+    entry = _entry(lib, name, 10, 6)
     dec = ldpc_decoder(rate, None, dev)
     code = get_code(rate)
     tables = [torch.as_tensor(t, device=dev)
@@ -113,26 +112,28 @@ def _before_decoder(lib: ctypes.CDLL, kernel: str, interface: str, rate: str,
 
     def decode(x: torch.Tensor, f: torch.Tensor) -> DecodeResult:
         info, success, iters, post = ldpc_kernel._outputs(x, dec.k)
-        err = fn(x.data_ptr(), f.data_ptr(), *(t.data_ptr() for t in tables),
-                 post.data_ptr(), info.data_ptr(), success.data_ptr(), iters.data_ptr(),
-                 x.shape[0], dec.n, dec.m, dec.k, dec.D, dec.max_iters,
-                 torch.cuda.current_stream(dev).cuda_stream)
-        if err:
-            raise RuntimeError(f"earlier {kernel} launch failed: CUDA error {err}")
+        cuda_kernels.launch(entry, x, f, *tables, post, info, success, iters, x.shape[0], dec.n,
+                            dec.m, dec.k, dec.D, dec.max_iters)
         return DecodeResult(info, success, iters, post)
 
     return decode
 
 
-def _table_decoder(fn, kernel: str, rate: str, precision: str, dev: torch.device):
-    """A kernel of today's interface, its C entry point ``fn``, on the tables
-    of ``precision``."""
+def _entry(lib: ctypes.CDLL, name: str, ptrs: int, ints: int) -> cuda_kernels.Kernel:
+    """The decoder entry point ``ria_<name>_decode`` of ``lib``, bound now."""
+    return cuda_kernels.Kernel(name, f"{name}_decode", ptrs, ints).on(lib)
+
+
+def _table_decoder(entry: cuda_kernels.Kernel, kernel: str, rate: str, precision: str,
+                   dev: torch.device):
+    """A kernel of today's interface, its C entry point ``entry``, on the
+    tables of ``precision``."""
     dec = ldpc_decoder(rate, None, dev, precision)
     tables = getattr(dec, kernel)
 
     def decode(x: torch.Tensor, f: torch.Tensor) -> DecodeResult:
-        return DecodeResult(*ldpc_kernel.launch(lambda: fn, kernel.upper(), x, f, tables,
-                                                dec.k, dec.max_iters, precision)[0])
+        return DecodeResult(*ldpc_kernel.launch(lambda: entry, kernel.upper(), x, f, tables,
+                                                dec.k, dec.max_iters, precision))
 
     return decode
 
@@ -197,12 +198,12 @@ def run(argv=None) -> int:
     args = _parse(sys.argv[1:] if argv is None else argv)
     kernel, precision = args.kernel, args.precision
     name, libraries, _ = KERNELS[kernel]
-    source, defines = ldpc_kernel.LIBRARIES[libraries[precision]]
+    source, defines = cuda_kernels.LIBRARIES[libraries[precision]]
     defines = (*defines, *(f"-D{d}" for d in args.define))
     after_name = source.stem
     dev = torch.device("cuda", 0)
-    builds = ldpc_kernel.compile_libraries({"before": (args.before, BEFORE_DEFINES[precision]),
-                                            "after": (source, defines)})
+    builds = cuda_kernels.compile_libraries({"before": (args.before, BEFORE_DEFINES[precision]),
+                                             "after": (source, defines)})
     for tag, b in builds.items():
         _print_ptxas(tag, b)
     lib_before, lib_after = (ctypes.CDLL(str(builds[t].path)) for t in ("before", "after"))
@@ -226,8 +227,8 @@ def run(argv=None) -> int:
         return _before_decoder(lib_before, kernel, args.interface, rate, dev)
 
     def after_decoder(rate):
-        return _table_decoder(ldpc_kernel.entry_point(lib_after, after_name), kernel, rate,
-                              precision, dev)
+        return _table_decoder(_entry(lib_after, after_name, 9, 8), kernel, rate, precision,
+                              dev)
 
     rng = np.random.default_rng(1234)
     batches = []

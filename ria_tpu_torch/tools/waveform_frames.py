@@ -29,12 +29,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.fec.ldpc import LDPCDecoder
 from ria_tpu_torch.phy.frame_v2 import (
     ControlFrame, DataFrame, WaveformMode, hash_callsign, make_fixed_data_frame,
 )
 from ria_tpu_torch.phy.modem import RxFrame
+from ria_tpu_torch.utils.cuda_kernels import launches, reset_launches
 from ria_tpu_torch.wave.api import create_waveform
 
 CAPTURE_DIR = Path(__file__).resolve().parents[2] / "tests" / "golden" / "interop"
@@ -151,9 +151,10 @@ def check_clean_frame(rx: RxFrame, spec: CleanFrame) -> None:
 def counted(fn):
     """(fn(), K1 launches, K2 launches of either build) of one call, the
     counters set to 0 just before it and read just after."""
-    ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = ldpc_kernel.LAUNCHES_V1_BF16 = 0
+    reset_launches()
     out = fn()
-    return out, ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_V1 + ldpc_kernel.LAUNCHES_V1_BF16
+    return out, launches("ldpc_bp_decode"), (launches("ldpc_bp_v1_decode")
+                                              + launches("ldpc_bp_v1_bf16_decode"))
 
 
 def counted_k1(fn):

@@ -27,8 +27,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ria_tpu_torch.dsp.util import _rdiv
 from ria_tpu_torch.utils.device import full_fp32_matmul, resolve_device
-from ria_tpu_torch.wave.ofdm import _rdiv
 
 BARKER13 = np.array([1, 1, 1, 1, 1, -1, -1, 1, 1, -1, 1, -1, 1])
 BARKER_REPEATS = 3

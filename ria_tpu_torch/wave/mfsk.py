@@ -28,8 +28,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from ria_tpu_torch.dsp.util import _sliding
 from ria_tpu_torch.utils.device import full_fp32_matmul, resolve_device
-from ria_tpu_torch.wave.ofdm import _sliding
 
 # Preamble offsets step by sps / SYNC_PHASES.
 SYNC_PHASES = 4

@@ -51,9 +51,10 @@ import torch
 from torch import nn
 
 from ria_tpu_torch.dsp.hilbert import analytic_signal
+from ria_tpu_torch.dsp.util import _cis, _first_true, _rdiv, _sliding
 from ria_tpu_torch.sync import sc_kernel
 from ria_tpu_torch.sync.chirp import window_slice
-from ria_tpu_torch.utils.device import resolve_device, wide_cumsum
+from ria_tpu_torch.utils.device import resolve_device
 from ria_tpu_torch.utils.mt19937 import MT19937
 from ria_tpu_torch.utils.trace import span
 
@@ -359,34 +360,9 @@ def tx_frame(bits: np.ndarray, cfg: OFDMConfig, preamble: str = "cox",
 # RX helpers
 # ============================================================================
 
-def _rdiv(x: torch.Tensor, c: float) -> torch.Tensor:
-    """x / c for a constant c as the reference computes it under ``jax.jit``:
-    XLA turns the division into a multiply by the float32 reciprocal of c.
-    (Over a 26,880-sample downmix ramp the two differ by up to 2 ulps of the
-    phase, 1e-3 rad, which moves LLRs of near-zero symbols by ~0.05.)"""
-    return x * float(np.float32(1.0) / np.float32(c))
-
-
-def _sliding(x: torch.Tensor, w: int) -> torch.Tensor:
-    """Sliding sums of w samples along the last axis (cumsum difference)."""
-    cs = torch.cat([torch.zeros_like(x[..., :1]), wide_cumsum(x, dim=-1)], dim=-1)
-    return cs[..., w:] - cs[..., :-w]
-
-
 def _take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """x[b, idx[b]] for x [B, n] and idx [B]."""
     return torch.gather(x, 1, idx[:, None].long())[:, 0]
-
-
-def _first_true(mask: torch.Tensor) -> torch.Tensor:
-    """Index of the first True along the last axis (0 when none): the
-    reference's argmax of a boolean mask (``torch.argmax`` takes no bool)."""
-    return torch.argmax(mask.to(torch.uint8), dim=-1)
-
-
-def _cis(theta: torch.Tensor) -> torch.Tensor:
-    """exp(1j * theta) as complex64 (theta float32)."""
-    return torch.polar(torch.ones_like(theta), theta)
 
 
 # ============================================================================

@@ -31,8 +31,9 @@ import numpy as np
 import torch
 from torch import nn
 
+from ria_tpu_torch.dsp.util import _cis, _rdiv
 from ria_tpu_torch.utils.device import resolve_device
-from ria_tpu_torch.wave.ofdm import _cis, _demap, _rdiv, constellation_table
+from ria_tpu_torch.wave.ofdm import _demap, constellation_table
 
 PREAMBLE_TARGET_RMS = 0.35
 BITS_PER_CELL = {"BPSK": 1, "QPSK": 2, "QAM16": 4}

@@ -15,8 +15,8 @@ import pytest
 import torch
 
 from ria_tpu_torch.entry import bench_batches
-from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.tools import bench as BT
+from ria_tpu_torch.utils import cuda_kernels
 
 torch.set_num_threads(1)
 
@@ -35,8 +35,7 @@ def cuda_device():
 @pytest.mark.cuda
 def test_twin_on_the_card_launches_each_build_once_a_call(cuda_device):
     batches = bench_batches(cuda_device)
-    ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_BF16 = 0
-    ldpc_kernel.LAUNCHES_V1 = ldpc_kernel.LAUNCHES_V1_BF16 = 0
+    cuda_kernels.reset_launches()
     line, launches = BT.run(BT.build_chains(batches, cuda_device), batches.ldpc.variants,
                             batches.ldpc.clean.cpu().numpy(), cuda_device, iters=3, trials=1,
                             windows=2, window_calls=2, serving_calls=2)
@@ -50,9 +49,10 @@ def test_twin_on_the_card_launches_each_build_once_a_call(cuda_device):
     for part, n in launches.items():
         want = {k: (calls[part] if k == LAUNCHED[part] else 0) for k in ("k1", "k1_bf16", "k2")}
         assert n == {"calls": calls[part], **want}, part
-    assert ldpc_kernel.LAUNCHES == sum(n["k1"] for n in launches.values())
-    assert ldpc_kernel.LAUNCHES_BF16 == launches["k1_bf16"]["calls"]
-    assert ldpc_kernel.LAUNCHES_V1 == ldpc_kernel.LAUNCHES_V1_BF16 == 0
+    assert cuda_kernels.launches("ldpc_bp_decode") == sum(n["k1"] for n in launches.values())
+    assert cuda_kernels.launches("ldpc_bp_bf16_decode") == launches["k1_bf16"]["calls"]
+    assert (cuda_kernels.launches("ldpc_bp_v1_decode")
+            == cuda_kernels.launches("ldpc_bp_v1_bf16_decode") == 0)
     for row in ("plain", "k1", "k1_bf16"):
         assert d["ldpc"][f"{row}_cw_per_s"] > 0 and d["ldpc"][f"{row}_decode_ok"] > 0.5
     # K1 computes what the plain decoder computes, so both decide alike.

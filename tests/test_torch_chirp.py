@@ -152,47 +152,50 @@ def test_zoom_front_plain_is_the_inline_expressions(B, n):
 
 def test_cpu_tensor_never_reaches_the_kernel(monkeypatch):
     """On the CPU the detector neither loads nor launches the window pass's
-    kernel, and ``LAUNCHES`` stays as it was."""
+    kernel, and its launch count stays as it was."""
     from ria_tpu_torch.sync import zoom_kernel
+    from ria_tpu_torch.utils import cuda_kernels
 
     def refuse(*args):
         raise AssertionError("the CUDA kernel was reached from a CPU tensor")
 
     monkeypatch.setattr(zoom_kernel, "load", refuse)
     monkeypatch.setattr(zoom_kernel, "zoom_front", refuse)
-    before = zoom_kernel.LAUNCHES
+    before = cuda_kernels.launches("zoom_front")
     det = tchirp.ChirpDetector(tchirp.ChirpConfig(), 207328, "cpu")
     det(torch.as_tensor(_windows({}, 207328, [(4000, 2.0)], seed=5)))
-    assert zoom_kernel.LAUNCHES == before
+    assert cuda_kernels.launches("zoom_front") == before
 
 
 def test_kernel_wrapper_refuses_a_cpu_tensor(monkeypatch):
     """The wrapper raises on a CPU tensor before anything is built: it has
     no path that falls back to the plain version."""
-    from ria_tpu_torch.fec import ldpc_kernel
     from ria_tpu_torch.sync import zoom_kernel
+    from ria_tpu_torch.utils import cuda_kernels
 
-    def refuse(name):
+    def refuse(*args):
         raise AssertionError("a library was loaded for a CPU tensor")
 
-    monkeypatch.setattr(ldpc_kernel, "kernel", refuse)
-    before = zoom_kernel.LAUNCHES
+    monkeypatch.setattr(cuda_kernels, "load", refuse)
+    monkeypatch.setattr(cuda_kernels, "launch", refuse)
+    before = cuda_kernels.launches("zoom_front")
     with pytest.raises(ValueError, match="CUDA tensors"):
         zoom_kernel.zoom_front(torch.zeros(2, 64), torch.zeros(64, dtype=torch.complex64), 8)
-    assert zoom_kernel.LAUNCHES == before
+    assert cuda_kernels.launches("zoom_front") == before
 
 
-def test_zoom_front_is_built_with_the_decoders_and_typed():
-    """``zoom_front`` is a library of ``ldpc_kernel.build()``'s parallel
-    nvcc run, and its C entry point, bound on a stand-in library (no nvcc
-    here), takes a pointer for each pointer of the source's signature and
-    for the stream, an int for each int."""
+def test_zoom_front_is_a_library_of_the_table_and_typed():
+    """``zoom_front`` is a library of ``cuda_kernels.LIBRARIES``, and its C
+    entry point, as ``zoom_kernel`` declares it and bound on a stand-in
+    library (no nvcc here), takes a pointer for each pointer of the source's
+    signature and for the stream, an int for each int."""
     import ctypes
     import re
 
-    from ria_tpu_torch.fec import ldpc_kernel
+    from ria_tpu_torch.sync import zoom_kernel
+    from ria_tpu_torch.utils import cuda_kernels
 
-    source, flags = ldpc_kernel.LIBRARIES["zoom_front"]
+    source, flags = cuda_kernels.LIBRARIES["zoom_front"]
     assert source.name == "zoom_front.cu" and source.is_file()
     assert flags == ("-cudart", "shared")  # the runtime PyTorch has loaded
     sig = re.search(r'extern "C" int ria_zoom_front\(([^)]*)\)', source.read_text()).group(1)
@@ -203,6 +206,7 @@ def test_zoom_front_is_built_with_the_decoders_and_typed():
     class StandIn:
         ria_zoom_front = type("Fn", (), {})()
 
-    fn = ldpc_kernel.kernel_entry_point(StandIn(), "zoom_front")
+    assert zoom_kernel._KERNEL.library == "zoom_front"
+    fn = zoom_kernel._KERNEL.typed(StandIn())
     assert fn.argtypes == [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p]
     assert fn.restype is ctypes.c_int

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from ria_tpu_torch.sync import chirp, zoom_kernel
+from ria_tpu_torch.utils import cuda_kernels
 
 ROOT = Path(__file__).resolve().parents[1]
 CELL = "mcdpsk_r14.gw256_awgn0"
@@ -68,10 +69,10 @@ def test_kernel_matches_plain(B, n, offset, cuda_device):
     nb, nblk = det.nfft // D, n // D
     x = _window(B, n, cuda_device, offset)
     assert (x.data_ptr() % 16 == 0 and n % 4 == 0) == (offset == 0 and n % 4 == 0)
-    before = zoom_kernel.LAUNCHES
+    before = cuda_kernels.launches("zoom_front")
     zb, blk = zoom_kernel.zoom_front(x, det.rot, nb)
     torch.cuda.synchronize()
-    assert zoom_kernel.LAUNCHES == before + 1
+    assert cuda_kernels.launches("zoom_front") == before + 1
     want_zb, want_blk = chirp.zoom_front_plain(x, det.rot, nb)
     assert zb.shape == (B, nb) and zb.dtype == torch.complex64
     assert blk.shape == (B, nblk) and blk.dtype == torch.float32
@@ -100,12 +101,12 @@ def test_one_launch_per_detector_call(cuda_device):
     n = 207328
     det = chirp.chirp_detector(chirp.ChirpConfig(), n, cuda_device)
     x = _window(4, n, cuda_device)
-    before = zoom_kernel.LAUNCHES
+    before = cuda_kernels.launches("zoom_front")
     for calls in (1, 2, 3):
         det(x)
-        assert zoom_kernel.LAUNCHES == before + calls
+        assert cuda_kernels.launches("zoom_front") == before + calls
     chirp.detect_dual_chirp(x[:1], chirp.ChirpConfig())
-    assert zoom_kernel.LAUNCHES == before + 4
+    assert cuda_kernels.launches("zoom_front") == before + 4
 
 
 @pytest.mark.cuda
@@ -119,13 +120,13 @@ def test_cell_chain_equals_the_plain_pass(seed, cuda_device, monkeypatch):
     pool, _ = cell.generator.make_pool(cell.config, cell.traffic, seed, cuda_device)
     program = cell.entry.Program(cell.config, cell.traffic, cuda_device)
     with torch.no_grad():
-        before = zoom_kernel.LAUNCHES
+        before = cuda_kernels.launches("zoom_front")
         got = [program(batch.to(cuda_device)) for batch in pool]
-        assert zoom_kernel.LAUNCHES == before + len(pool)
+        assert cuda_kernels.launches("zoom_front") == before + len(pool)
         with monkeypatch.context() as m:
             m.setattr(chirp, "zoom_front", chirp.zoom_front_plain)
             want = [program(batch.to(cuda_device)) for batch in pool]
-        assert zoom_kernel.LAUNCHES == before + len(pool)
+        assert cuda_kernels.launches("zoom_front") == before + len(pool)
     for g, w in zip(got, want):
         assert bool(g["detected"].any())
         for name in ("detected", "start", "cfo_hz", "snr_db", "cw_success", "info_bits",

@@ -14,7 +14,6 @@ import torch
 from ria_tpu_torch.entry import (RATE, _make_ofdm_batch, bench_batches, entry, geometry,
                                  ofdm_geometry)
 from ria_tpu_torch.fec import ldpc as T
-from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch import cli
 from ria_tpu_torch.phy import frame_v2
 from ria_tpu_torch.phy import adaptive, station
@@ -26,6 +25,7 @@ from ria_tpu_torch.sim import channel as sim_channel
 from ria_tpu_torch.sim import continuous, simulator
 from ria_tpu_torch.sync import css, zc
 from ria_tpu_torch.tools import dual_modem_tcp, waveform_paths
+from ria_tpu_torch.utils import cuda_kernels
 from ria_tpu_torch.wave import afdm, api, dpsk, mfsk, ofdm, otfs
 from ria_tpu_torch import entry as entry_mod
 from ria_tpu_torch.parallel import distributed, launch, mesh as pmesh, stream as pstream
@@ -239,10 +239,10 @@ def test_cli_defaults_to_the_card(cmd, capsys, tmp_path, monkeypatch):
 @pytest.mark.parametrize("name", list(CALLS))
 def test_default_device_is_the_card(name):
     if torch.cuda.is_available():
-        before = ldpc_kernel.LAUNCHES
+        before = cuda_kernels.launches("ldpc_bp_decode")
         got = CALLS[name]()
         if isinstance(got, np.ndarray):  # a host result: decoded by K1 on the card
-            assert ldpc_kernel.LAUNCHES > before
+            assert cuda_kernels.launches("ldpc_bp_decode") > before
             return
         assert (got if isinstance(got, torch.device) else got.device).type == "cuda"
     else:

@@ -129,8 +129,8 @@ def test_wide_cumsum_is_the_cpu_cumsum(dtype):
     """``wide_cumsum`` (the sync detectors' energy prefixes) gives the CPU's
     ``torch.cumsum`` bit for bit, batched and over a run of zeros, where the
     prefixes stay constant and a sliding sum reads exactly 0."""
+    from ria_tpu_torch.dsp.util import _sliding
     from ria_tpu_torch.utils.device import wide_cumsum
-    from ria_tpu_torch.wave.ofdm import _sliding
 
     rng = np.random.default_rng(3)
     x = rng.normal(size=(3, 48000)).astype(np.float32) ** 2

@@ -356,6 +356,27 @@ def test_subpackages_import_with_jax_blocked():
     assert proc.stdout.strip() == "ok"
 
 
+def test_sync_imports_neither_fec_nor_wave():
+    """The layers point one way (utils <- dsp <- sync <- wave): every module
+    of ``ria_tpu_torch.sync``, imported in a fresh process, loads no module
+    of ``fec`` and none of ``wave``, only the package's, ``sync``'s, ``dsp``'s
+    and ``utils``'."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import ria_tpu_torch.sync as sync\n"
+        "for m in pkgutil.iter_modules(sync.__path__):\n"
+        "    importlib.import_module('ria_tpu_torch.sync.' + m.name)\n"
+        "print(' '.join(sorted(n for n in sys.modules if n.startswith('ria_tpu_torch'))))\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    loaded = proc.stdout.split()
+    assert "ria_tpu_torch.sync.sc_kernel" in loaded and "ria_tpu_torch.sync.zc" in loaded
+    assert not [n for n in loaded if n.startswith(("ria_tpu_torch.fec", "ria_tpu_torch.wave"))]
+    assert all(n == "ria_tpu_torch" or n.split(".")[1] in ("sync", "dsp", "utils")
+               for n in loaded), loaded
+
+
 @pytest.mark.parametrize("tool,argv,expect", [
     ("verify_cfo_chain", ["--device", "cpu"], "PASS"),
     ("throughput_test", ["--device", "cpu", "--assert"], "PASS: every operating point"),

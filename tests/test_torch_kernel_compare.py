@@ -8,8 +8,8 @@ arguments, and refuse what it cannot compare before it builds anything.
 import pytest
 import torch
 
-from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.tools import kernel_compare
+from ria_tpu_torch.utils import cuda_kernels
 
 torch.set_num_threads(1)
 
@@ -19,7 +19,7 @@ def no_build(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("kernel_compare built a library")
 
-    monkeypatch.setattr(ldpc_kernel, "compile_libraries", refuse)
+    monkeypatch.setattr(cuda_kernels, "compile_libraries", refuse)
 
 
 @pytest.mark.parametrize("argv", [["--kernel", "k3", "build/x.cu"], ["build/x.cu"],
@@ -43,17 +43,18 @@ def test_parses_kernel_and_defines():
 
 
 def test_defines_build_a_library_of_their_own():
-    src = ldpc_kernel._SOURCE_V1
-    plain = ldpc_kernel.library_path(src)
-    variant = ldpc_kernel.library_path(src, ("-DK2_SPECULATE=0",))
-    assert plain == ldpc_kernel.library_path(src, ()) != ldpc_kernel.library_path()
+    src = cuda_kernels.LIBRARIES["ldpc_bp_v1"][0]
+    plain = cuda_kernels.library_path(src)
+    variant = cuda_kernels.library_path(src, ("-DK2_SPECULATE=0",))
+    assert plain == cuda_kernels.library_path(src, ()) != cuda_kernels.library_path(
+        cuda_kernels.LIBRARIES["ldpc_bp"][0])
     assert variant != plain and variant.parent == plain.parent
 
 
 def test_every_k2_switch_defaults_to_the_design():
     """Each K2_* switch the tool's --define names is a macro of K2's source
     that defaults to the design (1, or 4 blocks per SM)."""
-    text = ldpc_kernel._SOURCE_V1.read_text()
+    text = cuda_kernels.LIBRARIES["ldpc_bp_v1"][0].read_text()
     for name, default in (("K2_SPECULATE", 1), ("K2_SENTINELS", 1), ("K2_V2C_REGS", 1),
                           ("K2_TABLES_RESIDENT", 1), ("K2_MIN_BLOCKS", 4)):
         assert f"#ifndef {name}" in text and f"#define {name} {default}\n" in text
@@ -74,12 +75,12 @@ def test_bf16_compares_the_earlier_source_built_as_before_with_the_checkouts_bf1
     kernel, which is a source of its own with no define."""
     name, libraries, _ = kernel_compare.KERNELS[kernel]
     assert kernel_compare.BEFORE_DEFINES == {"f32": (), "bf16": ("-DRIA_BF16_OPERANDS",)}
-    f32_src, f32_defs = ldpc_kernel.LIBRARIES[libraries["f32"]]
-    bf16_src, bf16_defs = ldpc_kernel.LIBRARIES[libraries["bf16"]]
+    f32_src, f32_defs = cuda_kernels.LIBRARIES[libraries["f32"]]
+    bf16_src, bf16_defs = cuda_kernels.LIBRARIES[libraries["bf16"]]
     assert f32_src.stem == name and bf16_src.stem == f"{name}_bf16"
     assert f32_defs == bf16_defs == () and bf16_src.exists()
-    before = ldpc_kernel.library_path(f32_src, kernel_compare.BEFORE_DEFINES["bf16"])
-    assert before not in (ldpc_kernel.library_path(f32_src), ldpc_kernel.library_path(bf16_src))
+    before = cuda_kernels.library_path(f32_src, kernel_compare.BEFORE_DEFINES["bf16"])
+    assert before not in (cuda_kernels.library_path(f32_src), cuda_kernels.library_path(bf16_src))
 
 
 def test_sass_instructions_drop_names_and_headers():

@@ -29,6 +29,7 @@ from ria_tpu_torch.fec.ldpc import decode_batch, ldpc_decoder
 from ria_tpu_torch.fec.ldpc_cuda import make_cuda_decoder, make_cuda_decoder_v1
 from ria_tpu_torch.fec.ldpc_matrix import CODE_PARAMS, encode_np, get_code
 from ria_tpu_torch.tools import ldpc_bench
+from ria_tpu_torch.utils import cuda_kernels
 
 torch.set_num_threads(1)
 
@@ -100,10 +101,10 @@ def test_kernel_matches_plain(rate, sigma, cuda_device):
     fac = np.resize(LADDER, 64)
     dec = ldpc_decoder(rate, 30, cuda_device)
     x, f = torch.as_tensor(llr, device=cuda_device), torch.as_tensor(fac, device=cuda_device)
-    before = ldpc_kernel.LAUNCHES
+    before = cuda_kernels.launches("ldpc_bp_decode")
     got = dec(x, f)
     torch.cuda.synchronize()
-    assert ldpc_kernel.LAUNCHES == before + 1
+    assert cuda_kernels.launches("ldpc_bp_decode") == before + 1
     _assert_matches(got, dec.plain(x, f))
     # The plain decoder on the CPU, the one the JAX reference holds.
     cpu = ldpc_decoder(rate, 30, "cpu")
@@ -124,9 +125,9 @@ def test_zero_rows_and_zero_iterations(cuda_device):
 @pytest.mark.cuda
 def test_decode_batch_launches_kernel(cuda_device):
     llr = torch.as_tensor(_llrs("R1_2", 5, 1.0, seed=3), device=cuda_device)
-    before = ldpc_kernel.LAUNCHES
+    before = cuda_kernels.launches("ldpc_bp_decode")
     r = decode_batch(llr, torch.full((5,), 0.75, device=cuda_device), "R1_2")
-    assert ldpc_kernel.LAUNCHES == before + 1
+    assert cuda_kernels.launches("ldpc_bp_decode") == before + 1
     assert r.info_bits.shape == (5, 324) and r.success.device.type == "cuda"
 
 
@@ -156,10 +157,10 @@ def test_k2_matches_plain_v1_and_k1(rate, sigma, cuda_device):
     llr = _llrs(rate, 64, sigma, seed=7)
     x = torch.as_tensor(llr, device=cuda_device)
     f = torch.as_tensor(np.resize(LADDER, 64), device=cuda_device)
-    before = ldpc_kernel.LAUNCHES_V1
+    before = cuda_kernels.launches("ldpc_bp_v1_decode")
     got = make_cuda_decoder_v1(rate, 30, device=cuda_device)(x, f)
     torch.cuda.synchronize()
-    assert ldpc_kernel.LAUNCHES_V1 == before + 1
+    assert cuda_kernels.launches("ldpc_bp_v1_decode") == before + 1
     dec = ldpc_decoder(rate, 30, cuda_device)
     _assert_equal(got, dec.plain_v1(x, f), ldpc_decoder(rate, 30, "cpu").plain_v1(x.cpu(), f.cpu()))
     _assert_matches(got, make_cuda_decoder(rate, 30, device=cuda_device)(x, f))
@@ -203,10 +204,10 @@ def test_decode_with_retries_on_card(cuda_device):
     """The R1/2 ladder case of tests/test_torch_ldpc_serving.py: at most two
     K1 launches, and the result of the CPU port."""
     llr = _bpsk_llrs("R1_2", 5, 4, 10 ** (1.2 / 20))
-    before = ldpc_kernel.LAUNCHES
+    before = cuda_kernels.launches("ldpc_bp_decode")
     got = T.decode_with_retries(llr, "R1_2", device=cuda_device)
     torch.cuda.synchronize()
-    assert ldpc_kernel.LAUNCHES - before == 2
+    assert cuda_kernels.launches("ldpc_bp_decode") - before == 2
     assert got.success.device.type == "cuda"
     _assert_matches(got, T.decode_with_retries(llr, "R1_2", device="cpu"))
 
@@ -216,9 +217,9 @@ def test_codec_and_candidates_on_card(cuda_device):
     for rate in CODE_PARAMS:
         codec = T.LDPCCodec(rate, device=cuda_device)
         data = bytes(range(40))
-        before = ldpc_kernel.LAUNCHES
+        before = cuda_kernels.launches("ldpc_bp_decode")
         ok, decoded = codec.decode_hard(codec.encode(data))
-        assert ldpc_kernel.LAUNCHES == before + 1
+        assert cuda_kernels.launches("ldpc_bp_decode") == before + 1
         assert ok and decoded[: len(data)] == data
     llr = _bpsk_llrs("R1_4", 6, 4, 10 ** (-1.0 / 20))
     got = T.decode_candidates(llr, "R1_4", device=cuda_device)
@@ -230,10 +231,10 @@ def test_codec_and_candidates_on_card(cuda_device):
 
 
 def _k1_vs_plain(dec, x, f):
-    before = ldpc_kernel.LAUNCHES
+    before = cuda_kernels.launches("ldpc_bp_decode")
     got = dec(x, f)
     torch.cuda.synchronize()
-    assert ldpc_kernel.LAUNCHES == before + 1
+    assert cuda_kernels.launches("ldpc_bp_decode") == before + 1
     want = dec.plain(x, f)
     _assert_matches(got, want)
     return got
@@ -297,10 +298,10 @@ def test_k1_resources_hold_the_ab_batch(cuda_device):
 
 
 def _k2_vs_plain_v1(dec, x, f):
-    before = ldpc_kernel.LAUNCHES_V1
+    before = cuda_kernels.launches("ldpc_bp_v1_decode")
     got = ldpc_kernel.bp_decode_v1(x, f, dec.k2, dec.k, dec.max_iters)
     torch.cuda.synchronize()
-    assert ldpc_kernel.LAUNCHES_V1 == before + 1
+    assert cuda_kernels.launches("ldpc_bp_v1_decode") == before + 1
     _assert_equal(got, dec.plain_v1(x, f))
     return got
 
@@ -411,18 +412,19 @@ def _bf16_case(rate, B, kind):
 @pytest.mark.parametrize("rate,B,kind", [(r, b, "near") for r in CODE_PARAMS for b in (8, 256)]
                          + [("R1_4", 512, "mixed"), ("R1_4", 512, "ab")])
 def test_k1_bf16_equals_plain_bf16_bit_for_bit(rate, B, kind, cuda_device):
-    """K1's bf16 build (csrc/ldpc_bp_bf16.cu), counted in ``LAUNCHES_BF16``
-    alone, against the plain decoder's ``precision="bf16"`` on the card and
+    """K1's bf16 build (csrc/ldpc_bp_bf16.cu), launched alone
+    (``ria_ldpc_bp_bf16_decode``), against the plain decoder's ``precision="bf16"`` on the card and
     on the CPU: every output of every row equal, converged or not, at every
     rate, on bench.py's mixed batch and at the A/B point; and not the
     float32 build's posteriors."""
     llr, fac, iters = _bf16_case(rate, B, kind)
     x, f = torch.as_tensor(llr, device=cuda_device), torch.as_tensor(fac, device=cuda_device)
     dec = ldpc_decoder(rate, iters, cuda_device, "bf16")
-    before = (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_BF16)
+    counts = ("ldpc_bp_decode", "ldpc_bp_bf16_decode")
+    before = [cuda_kernels.launches(c) for c in counts]
     got = dec(x, f)
     torch.cuda.synchronize()
-    assert (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_BF16) == (before[0], before[1] + 1)
+    assert [cuda_kernels.launches(c) - b for c, b in zip(counts, before)] == [0, 1]
     plain = dec.plain(x, f)
     cpu = ldpc_decoder(rate, iters, "cpu", "bf16").plain(x.cpu(), f.cpu())
     for a, b, c in zip(got, plain, cpu):
@@ -434,9 +436,9 @@ def test_k1_bf16_equals_plain_bf16_bit_for_bit(rate, B, kind, cuda_device):
 @pytest.mark.cuda
 def test_make_decoder_bf16_launches_the_bf16_build(cuda_device):
     x = torch.as_tensor(_llrs("R1_2", 16, 2.0, seed=3), device=cuda_device)
-    before = ldpc_kernel.LAUNCHES_BF16
+    before = cuda_kernels.launches("ldpc_bp_bf16_decode")
     got = T.make_decoder("R1_2", 30, 0.75, "bf16", device=cuda_device)(x)
-    assert ldpc_kernel.LAUNCHES_BF16 == before + 1
+    assert cuda_kernels.launches("ldpc_bp_bf16_decode") == before + 1
     want = T.make_decoder_vf("R1_2", 30, "bf16", device="cpu")(x.cpu(), torch.full((16,), 0.75))
     for a, b in zip(got, want):
         assert torch.equal(a.cpu(), b)
@@ -447,8 +449,8 @@ def test_make_decoder_bf16_launches_the_bf16_build(cuda_device):
                          + [("R1_4", 512, "mixed"), ("R1_4", 512, "ab"),
                             ("R1_4", 256, "off_grid"), ("R1_2", 64, "off_grid")])
 def test_k2_bf16_equals_plain_v1_bf16_bit_for_bit(rate, B, kind, cuda_device):
-    """K2's bf16 build (csrc/ldpc_bp_v1_bf16.cu), counted in
-    ``LAUNCHES_V1_BF16`` alone, against ``plain_v1``'s ``precision="bf16"``
+    """K2's bf16 build (csrc/ldpc_bp_v1_bf16.cu), launched alone
+    (``ria_ldpc_bp_v1_bf16_decode``), against ``plain_v1``'s ``precision="bf16"``
     on the card and on the CPU: every output of every row equal, converged
     or not, at every rate, on bench.py's mixed batch and at the A/B point;
     and not the float32 build's posteriors.  ``off_grid`` takes per-row
@@ -457,11 +459,12 @@ def test_k2_bf16_equals_plain_v1_bf16_bit_for_bit(rate, B, kind, cuda_device):
     llr, fac, iters = _bf16_case(rate, B, kind)
     x, f = torch.as_tensor(llr, device=cuda_device), torch.as_tensor(fac, device=cuda_device)
     dec = ldpc_decoder(rate, iters, cuda_device, "bf16")
-    counts = ("LAUNCHES", "LAUNCHES_BF16", "LAUNCHES_V1", "LAUNCHES_V1_BF16")
-    before = [getattr(ldpc_kernel, c) for c in counts]
+    counts = ("ldpc_bp_decode", "ldpc_bp_bf16_decode", "ldpc_bp_v1_decode",
+              "ldpc_bp_v1_bf16_decode")
+    before = [cuda_kernels.launches(c) for c in counts]
     got = make_cuda_decoder_v1(rate, iters, device=cuda_device, precision="bf16")(x, f)
     torch.cuda.synchronize()
-    assert [getattr(ldpc_kernel, c) - b for c, b in zip(counts, before)] == [0, 0, 0, 1]
+    assert [cuda_kernels.launches(c) - b for c, b in zip(counts, before)] == [0, 0, 0, 1]
     cpu = ldpc_decoder(rate, iters, "cpu", "bf16").plain_v1(x.cpu(), f.cpu())
     _assert_equal(got, dec.plain_v1(x, f), cpu)
     f32 = make_cuda_decoder_v1(rate, iters, device=cuda_device)(x, f)
@@ -493,11 +496,12 @@ def test_k1_bf16_and_k2_bf16_under_the_reference_contract(cuda_device):
 @pytest.mark.cuda
 def test_make_cuda_decoder_v1_bf16_launches_the_bf16_build(cuda_device):
     x = torch.as_tensor(_llrs("R1_2", 16, 2.0, seed=3), device=cuda_device)
-    counts = ("LAUNCHES", "LAUNCHES_BF16", "LAUNCHES_V1", "LAUNCHES_V1_BF16")
-    before = [getattr(ldpc_kernel, c) for c in counts]
+    counts = ("ldpc_bp_decode", "ldpc_bp_bf16_decode", "ldpc_bp_v1_decode",
+              "ldpc_bp_v1_bf16_decode")
+    before = [cuda_kernels.launches(c) for c in counts]
     got = make_cuda_decoder_v1("R1_2", 30, 0.75, device=cuda_device, precision="bf16")(x)
     torch.cuda.synchronize()
-    assert [getattr(ldpc_kernel, c) - b for c, b in zip(counts, before)] == [0, 0, 0, 1]
+    assert [cuda_kernels.launches(c) - b for c, b in zip(counts, before)] == [0, 0, 0, 1]
     want = ldpc_decoder("R1_2", 30, "cpu", "bf16").plain_v1(x.cpu(), torch.full((16,), 0.75))
     _assert_equal(got, want)
 
@@ -529,11 +533,11 @@ def test_k1_bf16_resources_hold_the_ab_batch(cuda_device):
 def test_k2_bf16_library_is_built_from_its_source_and_defines(cuda_device):
     """Each bf16 build is a source of its own (csrc/ldpc_bp_v1_bf16.cu,
     csrc/ldpc_bp_bf16.cu), in a library of its own whose name carries it."""
-    builds = ldpc_kernel.build()
+    builds = cuda_kernels.build()
     for bf16, f32 in (("ldpc_bp_v1_bf16", "ldpc_bp_v1"), ("ldpc_bp_bf16", "ldpc_bp")):
-        src, defines = ldpc_kernel.LIBRARIES[bf16]
+        src, defines = cuda_kernels.LIBRARIES[bf16]
         assert src.name == f"{bf16}.cu" and defines == ()
-        assert builds[bf16].path == ldpc_kernel.library_path(src, defines)
+        assert builds[bf16].path == cuda_kernels.library_path(src, defines)
         assert builds[bf16].path != builds[f32].path and builds[bf16].path.exists()
 
 

@@ -36,6 +36,7 @@ from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.fec.ldpc import LDPCDecoder, _bf16, ldpc_decoder
 from ria_tpu_torch.fec.ldpc_matrix import get_code
 from ria_tpu_torch.tools import ldpc_bench
+from ria_tpu_torch.utils import cuda_kernels
 
 from test_torch_ldpc import ITERS, _assert_matches, _awgn_llrs
 from test_torch_ldpc_v1 import BF16_INTERP_ATOL, assert_xla_contraction_replays
@@ -140,11 +141,11 @@ def test_k2_libraries_per_precision():
     has."""
     assert ldpc_kernel.K2_LIBRARY == {"f32": "ldpc_bp_v1", "bf16": "ldpc_bp_v1_bf16"}
     assert ldpc_kernel.K1_LIBRARY == {"f32": "ldpc_bp", "bf16": "ldpc_bp_bf16"}
-    src, defines = ldpc_kernel.LIBRARIES["ldpc_bp_v1_bf16"]
-    f32_src, f32_defines = ldpc_kernel.LIBRARIES["ldpc_bp_v1"]
+    src, defines = cuda_kernels.LIBRARIES["ldpc_bp_v1_bf16"]
+    f32_src, f32_defines = cuda_kernels.LIBRARIES["ldpc_bp_v1"]
     assert src.name == "ldpc_bp_v1_bf16.cu" and src.exists() and src != f32_src
     assert defines == f32_defines == ()
-    f32 = ldpc_kernel.library_path(f32_src)
-    bf16 = ldpc_kernel.library_path(src, defines)
+    f32 = cuda_kernels.library_path(f32_src)
+    bf16 = cuda_kernels.library_path(src, defines)
     assert bf16 != f32 and bf16.name.startswith("ldpc_bp_v1_bf16_") and bf16.parent == f32.parent
-    assert bf16 != ldpc_kernel.library_path(ldpc_kernel.LIBRARIES["ldpc_bp_bf16"][0])
+    assert bf16 != cuda_kernels.library_path(cuda_kernels.LIBRARIES["ldpc_bp_bf16"][0])

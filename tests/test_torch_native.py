@@ -4,15 +4,14 @@ Mirrors tests/test_native.py against the port's build of
 ``native/ria_native.cpp`` (into ``build/ria_tpu_torch/``, named by a hash of
 the source).  The same C++ source is built by both packages, so the port's
 ring buffer, resampler and Watterson channel must give the reference's
-results bit for bit on the same inputs.  Also: the library is built once
-when two threads ask at the same time, ``require`` raises with the
-compiler's output, and the CRC checks against the port's ``frame_v2``.
+results bit for bit on the same inputs.  Also: ``require`` raises with the
+compiler's output, and the CRC checks against the port's ``frame_v2``.  (The
+build itself, ``utils/native_build.py``, is held in
+tests/test_torch_kernel_threads.py, with the CUDA kernels'.)
 """
 
-import os
 import stat
 import sys
-import threading
 
 import numpy as np
 import pytest
@@ -20,6 +19,7 @@ import torch
 
 from ria_tpu.runtime import native as R
 from ria_tpu_torch.runtime import native as T
+from ria_tpu_torch.utils import native_build
 
 torch.set_num_threads(1)
 
@@ -27,14 +27,6 @@ torch.set_num_threads(1)
 @pytest.fixture(scope="module", autouse=True)
 def built():
     T.require()
-
-
-def test_library_lives_under_build_named_by_its_source():
-    path = T.library_path()
-    assert path.parent == T.BUILD_DIR and path.parent.name == "ria_tpu_torch"
-    assert path.parent.parent.name == "build" and path.exists()
-    assert path.name.startswith("ria_native_") and path.suffix == ".so"
-    assert T.available()
 
 
 def test_ring_buffer_spsc():
@@ -178,36 +170,10 @@ def _stand_in_compiler(tmp_path, log, body: str = "") -> str:
     return str(script)
 
 
-def test_build_runs_once_for_two_threads(tmp_path, monkeypatch):
-    log = tmp_path / "runs.log"
-    monkeypatch.setattr(T, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(T, "_compiler", lambda: _stand_in_compiler(tmp_path, log))
-    barrier = threading.Barrier(2)
-    results = []
-
-    def worker():
-        barrier.wait()
-        results.append(T.build())
-
-    threads = [threading.Thread(target=worker) for _ in range(2)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=60)
-    assert not any(t.is_alive() for t in threads)
-    assert len(log.read_text().split()) == 1
-    paths = {r.path for r in results}
-    assert len(paths) == 1
-    path = paths.pop()
-    assert path.read_bytes() == b"A" * 4096 + b"B" * 4096
-    assert sorted(r.seconds > 0 for r in results) == [False, True]
-    assert os.listdir(path.parent) == [path.name]  # no temporary left behind
-
-
 def test_require_raises_with_the_compiler_output(tmp_path, monkeypatch):
     log = tmp_path / "runs.log"
-    monkeypatch.setattr(T, "BUILD_DIR", tmp_path / "build")
-    monkeypatch.setattr(T, "_compiler", lambda: _stand_in_compiler(
+    monkeypatch.setattr(native_build, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native_build, "find_compiler", lambda name: _stand_in_compiler(
         tmp_path, log, "print('ria_native.cpp:1: error: no toolchain here'); sys.exit(1)\n"))
     monkeypatch.setattr(T, "_lib", None)
     monkeypatch.setattr(T, "_error", None)

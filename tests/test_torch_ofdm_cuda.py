@@ -17,8 +17,8 @@ import pytest
 import torch
 
 from ria_tpu_torch.entry import _make_ofdm_batch, ofdm_geometry
-from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.phy.pipeline import make_ofdm_rx_pipeline
+from ria_tpu_torch.utils import cuda_kernels
 from ria_tpu_torch.wave import ofdm
 
 torch.set_num_threads(1)
@@ -41,10 +41,11 @@ def test_chain_on_card_matches_cpu(config, cuda_device):
     x = audio.to(cuda_device)
     rx(x)
     torch.cuda.synchronize()
-    ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
+    cuda_kernels.reset_launches()
     got = rx(x)
     torch.cuda.synchronize()
-    assert (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_V1) == (1, 0)
+    assert (cuda_kernels.launches("ldpc_bp_decode"),
+            cuda_kernels.launches("ldpc_bp_v1_decode")) == (1, 0)
     want = make_ofdm_rx_pipeline(geom.cfg, geom.rate, geom.window, geom.ci_bits,
                                  device="cpu")(audio)
     for name in ("detected", "lts_start", "cw_success", "info_bits", "iterations"):

@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from ria_tpu_torch.sync import sc_kernel
+from ria_tpu_torch.utils import cuda_kernels
 from ria_tpu_torch.wave import ofdm
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -89,9 +90,9 @@ def test_kernels_equal_plain_at_the_cells_shapes(cell, cuda_device):
     cfg, B, n = SHAPES[cell]
     det = ofdm.SchmidlCoxDetector(cfg, n, cuda_device)
     x = windows(cfg, B, n, cuda_device, seed=3)
-    before = sc_kernel.LAUNCHES
+    before = cuda_kernels.launches("sc_coarse")
     got = det(x)
-    assert sc_kernel.LAUNCHES == before + 1
+    assert cuda_kernels.launches("sc_coarse") == before + 1
     want = det.search_plain(x)
     assert_equal(got, want, cell)
     # The search works: the frame at lead 0 is found, no all-zero row is.
@@ -145,14 +146,14 @@ def test_one_launch_per_search(cuda_device):
     n = 26160
     det = ofdm.schmidl_cox_detector(QAM64, n, cuda_device)
     x = windows(QAM64, 4, n, cuda_device)
-    before = sc_kernel.LAUNCHES
+    before = cuda_kernels.launches("sc_coarse")
     for calls in (1, 2, 3):
         det(x)
-        assert sc_kernel.LAUNCHES == before + calls
+        assert cuda_kernels.launches("sc_coarse") == before + calls
     ofdm.schmidl_cox_search(x[0], QAM64)
-    assert sc_kernel.LAUNCHES == before + 4
+    assert cuda_kernels.launches("sc_coarse") == before + 4
     det.search_plain(x)
-    assert sc_kernel.LAUNCHES == before + 4
+    assert cuda_kernels.launches("sc_coarse") == before + 4
 
 
 @pytest.mark.cuda
@@ -167,13 +168,13 @@ def test_cell_chain_equals_the_plain_search(cell, seed, cuda_device, monkeypatch
     pool, _ = c.generator.make_pool(c.config, c.traffic, seed, cuda_device)
     program = c.entry.Program(c.config, c.traffic, cuda_device)
     with torch.no_grad():
-        before = sc_kernel.LAUNCHES
+        before = cuda_kernels.launches("sc_coarse")
         got = [program(batch.to(cuda_device)) for batch in pool]
-        assert sc_kernel.LAUNCHES == before + len(pool)
+        assert cuda_kernels.launches("sc_coarse") == before + len(pool)
         with monkeypatch.context() as m:
             m.setattr(sc_kernel, "search", lambda det, x: det.search_plain(x))
             want = [program(batch.to(cuda_device)) for batch in pool]
-        assert sc_kernel.LAUNCHES == before + len(pool)
+        assert cuda_kernels.launches("sc_coarse") == before + len(pool)
     for g, w in zip(got, want):
         assert bool(g["detected"].any())
         for name in w:

@@ -24,8 +24,8 @@ import numpy as np
 import pytest
 import torch
 
-from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.sync import sc_kernel
+from ria_tpu_torch.utils import cuda_kernels
 from ria_tpu_torch.wave import ofdm
 
 QAM64 = ofdm.OFDMConfig(modulation="QAM64", use_pilots=True, pilot_spacing=8)
@@ -49,17 +49,18 @@ def _refuse(*args, **kwargs):
 @pytest.mark.parametrize("cell", sorted(CONFIGS))
 def test_cpu_tensor_never_reaches_the_kernels(cell, monkeypatch):
     """On the CPU the detector neither loads nor launches the kernels, and
-    ``LAUNCHES`` stays as it was."""
+    their launch count stays as it was."""
     cfg, n = CONFIGS[cell]
     monkeypatch.setattr(sc_kernel, "load", _refuse)
     monkeypatch.setattr(sc_kernel, "search", _refuse)
-    monkeypatch.setattr(ldpc_kernel, "kernel", _refuse)
-    before = sc_kernel.LAUNCHES
+    monkeypatch.setattr(cuda_kernels, "load", _refuse)
+    monkeypatch.setattr(cuda_kernels, "launch", _refuse)
+    before = cuda_kernels.launches("sc_coarse")
     det = ofdm.SchmidlCoxDetector(cfg, n, "cpu")
     res = det(_window(cfg, 2, n))
     assert bool(res.detected.all())
     assert ofdm.schmidl_cox_search(_window(cfg, 1, n)[0], cfg).lts_start.shape == ()
-    assert sc_kernel.LAUNCHES == before
+    assert cuda_kernels.launches("sc_coarse") == before
 
 
 @pytest.mark.parametrize("x,err,match", [
@@ -71,12 +72,13 @@ def test_cpu_tensor_never_reaches_the_kernels(cell, monkeypatch):
 def test_search_refuses_without_counting(x, err, match, monkeypatch):
     """``sc_kernel.search`` raises before anything is built, launched or
     counted: it has no path that falls back to the plain search."""
-    monkeypatch.setattr(ldpc_kernel, "kernel", _refuse)
+    monkeypatch.setattr(cuda_kernels, "load", _refuse)
+    monkeypatch.setattr(cuda_kernels, "launch", _refuse)
     det = ofdm.SchmidlCoxDetector(QAM64, 26160, "cpu")
-    before = sc_kernel.LAUNCHES
+    before = cuda_kernels.launches("sc_coarse")
     with pytest.raises(err, match=match):
         sc_kernel.search(det, x)
-    assert sc_kernel.LAUNCHES == before
+    assert cuda_kernels.launches("sc_coarse") == before
 
 
 def _signatures(source: str) -> dict[str, list[str]]:
@@ -85,17 +87,17 @@ def _signatures(source: str) -> dict[str, list[str]]:
             for name, params in re.findall(r'extern "C" int ria_(\w+)\(([^)]*)\)', source)}
 
 
-def test_sc_search_is_built_with_the_decoders_and_typed():
-    """``sc_search`` is a library of ``ldpc_kernel.build()``'s parallel nvcc
-    run, linked to the runtime PyTorch has loaded, and each of its C entry
-    points, bound on a stand-in library (no nvcc here), takes a pointer for
-    each pointer of the source's signature and for the stream, an int for
-    each int, in the source's order."""
-    source, flags = ldpc_kernel.LIBRARIES["sc_search"]
+def test_sc_search_is_a_library_of_the_table_and_typed():
+    """``sc_search`` is a library of ``cuda_kernels.LIBRARIES``, linked to the
+    runtime PyTorch has loaded, and each of its C entry points, as
+    ``sc_kernel`` declares it and bound on a stand-in library (no nvcc
+    here), takes a pointer for each pointer of the source's signature and
+    for the stream, an int for each int, in the source's order."""
+    source, flags = cuda_kernels.LIBRARIES["sc_search"]
     assert source.name == "sc_search.cu" and source.is_file()
     assert flags == ("-cudart", "shared")
     sigs = _signatures(source.read_text())
-    assert sorted(sigs) == sorted(ENTRIES)
+    assert sorted(sigs) == sorted(ENTRIES) == sorted(sc_kernel._KERNELS)
 
     class StandIn:
         pass
@@ -108,7 +110,7 @@ def test_sc_search_is_built_with_the_decoders_and_typed():
         assert params[-1] == "void* stream", name
         n_ptr = kinds.index("int")
         assert kinds == ["ptr"] * n_ptr + ["int"] * (len(kinds) - n_ptr - 1) + ["ptr"], name
-        fn = ldpc_kernel.kernel_entry_point(lib, name)
+        fn = sc_kernel._KERNELS[name].typed(lib)
         assert fn.argtypes == ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * (len(kinds) - n_ptr - 1)
                                + [ctypes.c_void_p]), name
         assert fn.restype is ctypes.c_int
@@ -117,10 +119,21 @@ def test_sc_search_is_built_with_the_decoders_and_typed():
 def test_the_kernels_are_loaded_from_their_library(monkeypatch):
     """``sc_kernel.load`` and every launch bind an entry of ``sc_search``."""
     seen = []
-    monkeypatch.setattr(ldpc_kernel, "kernel", lambda name, library=None: seen.append(
-        (name, library)) or (lambda *a: 0))
+
+    class StandIn:
+        def __getattr__(self, name):
+            fn = types.SimpleNamespace()
+            setattr(self, name, fn)
+            return fn
+
+    monkeypatch.setattr(cuda_kernels, "load", lambda library: seen.append(library) or StandIn())
+    for kernel in sc_kernel._KERNELS.values():
+        monkeypatch.setattr(kernel, "_fn", None)
     sc_kernel.load()
-    assert seen == [("sc_coarse", "sc_search")]
+    assert seen == ["sc_search"] * len(ENTRIES)
+    assert all(k.library == "sc_search" and k.fn() is not None
+               for k in sc_kernel._KERNELS.values())
+    assert seen == ["sc_search"] * len(ENTRIES)  # bound once
 
 
 @pytest.mark.parametrize("num_rows,row_size,want", [
@@ -264,8 +277,6 @@ def test_the_kernel_search_nests_its_spans(cell, monkeypatch):
     monkeypatch.setattr(sc_kernel, "span", rec.span)
     monkeypatch.setattr(sc_kernel, "_call", rec.call)
     monkeypatch.setattr(sc_kernel, "_smem_limit", lambda index: 227 * 1024)
-    monkeypatch.setattr(torch.cuda, "current_stream",
-                        lambda dev=None: types.SimpleNamespace(cuda_stream=0))
     out = sc_kernel._search(det, torch.zeros(3, n))
     assert rec.events == ["sc_pad", "+sync.coarse", "sc_coarse", "-sync.coarse", "+sync.fine",
                           "sc_slice", "sc_pick", "-sync.fine", "sc_decide"]

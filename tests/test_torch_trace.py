@@ -23,7 +23,7 @@ from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.fec.ldpc import decode_batch, ldpc_decoder
 from ria_tpu_torch.phy.pipeline import LDPC_BITS, make_ofdm_rx_pipeline, make_rx_pipeline
 from ria_tpu_torch.tools import bench_profile
-from ria_tpu_torch.utils import trace
+from ria_tpu_torch.utils import cuda_kernels, trace
 from ria_tpu_torch.wave.mc_dpsk import MCDPSKConfig
 from ria_tpu_torch.wave.ofdm import OFDMConfig
 
@@ -217,9 +217,9 @@ def test_setup_spans_once_for_each_fresh_build(rings, monkeypatch):
 
     # K1's library: its first load only (any shared library stands in for it).
     libc = ctypes.util.find_library("c") or "libc.so.6"
-    monkeypatch.setattr(ldpc_kernel, "_LIBRARIES", {})
-    monkeypatch.setattr(ldpc_kernel, "build", lambda: {
-        name: SimpleNamespace(path=libc) for name in ldpc_kernel.LIBRARIES})
+    monkeypatch.setattr(cuda_kernels, "_LOADED", {})
+    monkeypatch.setattr(cuda_kernels, "compile_libraries", lambda libraries: {
+        name: SimpleNamespace(path=libc) for name in libraries})
     ldpc_kernel._library("ldpc_bp")
     ldpc_kernel._library("ldpc_bp")
     assert rings.count("setup.k1_library") == 1

@@ -17,8 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from ria_tpu_torch.fec import ldpc_kernel
 from ria_tpu_torch.tools import waveform_paths as W
+from ria_tpu_torch.utils import cuda_kernels
 
 torch.set_num_threads(1)
 
@@ -39,10 +39,11 @@ def test_path_on_card_matches_cpu(name, cuda_device):
     x = audio.to(cuda_device)
     path(x)
     torch.cuda.synchronize()
-    ldpc_kernel.LAUNCHES = ldpc_kernel.LAUNCHES_V1 = 0
+    cuda_kernels.reset_launches()
     got = path(x)
     torch.cuda.synchronize()
-    assert (ldpc_kernel.LAUNCHES, ldpc_kernel.LAUNCHES_V1) == (1, 0)
+    assert (cuda_kernels.launches("ldpc_bp_decode"),
+            cuda_kernels.launches("ldpc_bp_v1_decode")) == (1, 0)
     want = path(audio)
     for field in ("detected", "start", "frame_type", "cw_success"):
         assert torch.equal(getattr(got, field).cpu(), getattr(want, field)), field
