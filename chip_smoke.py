@@ -36,6 +36,13 @@ and raising on failure:
    42,720, DQPSK): all five outputs equal bit for bit; each kernel's device
    µs beside its bound from the bytes and the share of it, the whole
    search's ms on the card beside the plain search's;
+3d. the OFDM demodulator's demap stage (``csrc/ofdm_demap.cu``) against its
+   plain version (``OFDMDemodulator.demap_plain``) on the card, at both OFDM
+   cells' shapes (DQPSK [1,024, 22, 59] with the noise variance broadcast
+   over the symbols, QAM64 [2,048, 9, 51] with a full one) and at a long
+   frame (S = 200, the chains in the output's slots): equal bit for bit; its device µs
+   beside its bound from the bytes and the share of it, and the plain
+   version's ms;
 4. main path: the MC-DPSK RX chain at the bench.py chain-1 geometry (64
    channels, window 207,328, R1/4, 4 codewords, 10 dB AWGN) from the port's
    own TX, checked against the transmitted bits and against the same chain
@@ -44,7 +51,8 @@ and raising on failure:
 4b. OFDM chains: bench.py's chains 2 and 3 (north-star configs #3, DQPSK
    R1/2 at 15 dB, window 42,720, and #4, QAM64 R3/4 at 25 dB, window
    26,160; 64 channels each) from the port's own TX, each call one
-   Schmidl-Cox search through the kernels (``launch_count("sc_coarse")``): all detected,
+   Schmidl-Cox search through the kernels (``launch_count("sc_coarse")``)
+   and one demap (``launch_count("ofdm_demap")``): all detected,
    cw_decode_rate >= 0.95, bits equal to those sent, one K1 launch and no K2
    launch in the call, and the same chain on the CPU equal;
 4c. single-frame waveform paths (``ria_tpu_torch.tools.waveform_paths``), 64
@@ -513,6 +521,69 @@ def sc_search_phase(card: str, dev: torch.device) -> dict:
             "ms": main["search_ms"], "plain_ms": main["plain_ms"], "bound_us": bound_us,
             "bound_ms": bound_us / 1e3, "bound_by": "bytes", "library_ms": None,
             "by_cell": by_cell}
+
+
+def demap_inputs(cfg, B: int, S: int, broadcast: bool, dev: torch.device, seed: int):
+    """(eq [B, S, D] complex64, carrier_nv of its shape) on the card: the
+    constellation's points (DQPSK's as its differential phases) under noise
+    at about 20 dB, each carrier's noise variance in [1e-3, 0.05] (every 7th
+    row's at the ceiling, 100), broadcast over the symbols or drawn a
+    symbol."""
+    from ria_tpu_torch.wave import ofdm
+
+    rng = np.random.default_rng(seed)
+    D = cfg.num_data_carriers
+    table = ofdm.constellation_table(cfg.modulation)
+    pts = table[rng.integers(0, len(table), (B, S, D))]
+    if cfg.modulation in ofdm.DIFFERENTIAL:
+        pts = np.cumprod(pts, axis=1)
+    noise = (rng.standard_normal((B, S, D)) + 1j * rng.standard_normal((B, S, D))) * 0.07
+    eq = torch.as_tensor((pts + noise).astype(np.complex64), device=dev)
+    nv = rng.uniform(1e-3, 0.05, (B, 1 if broadcast else S, D)).astype(np.float32)
+    nv[::7] = ofdm.MAX_CARRIER_NOISE_VAR
+    return eq, torch.as_tensor(nv, device=dev).expand(B, S, D)
+
+
+def ofdm_demap_phase(card: str, dev: torch.device) -> dict:
+    """Phase 3d: the demap stage's kernel against its plain version on the
+    card and timed, at both OFDM cells' shapes and at a long frame;
+    returns its ``kernels`` entry."""
+    from ria_tpu_torch.utils.timing import cuda_ms, kernel_us
+    from ria_tpu_torch.wave import demap_kernel, ofdm
+
+    shapes = {"ofdm_dqpsk_r14": (ofdm.OFDMConfig(modulation="DQPSK"), 1024, 22, True),
+              "ofdm_qam64_r34": (ofdm.OFDMConfig(modulation="QAM64", use_pilots=True,
+                                                 pilot_spacing=8), 2048, 9, False),
+              "dqpsk_s200": (ofdm.OFDMConfig(modulation="DQPSK"), 64, 200, True)}
+    by_cell = {}
+    for cell, (cfg, B, S, broadcast) in shapes.items():
+        mod, ce = cfg.modulation, ofdm.CE_MARGIN[cfg.modulation]
+        demod = ofdm.OFDMDemodulator(cfg, S, 2, dev)
+        eq, nv = demap_inputs(cfg, B, S, broadcast, dev, seed=B + S)
+        got = demap_kernel.demap(eq, nv, ce, mod)
+        want = demod.demap_plain(eq, nv, ce)
+        torch.cuda.synchronize()
+        differ = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+        if differ:
+            raise AssertionError(f"ofdm_demap differs from its plain version in {differ} of "
+                                 f"{got.numel()} LLRs ({cell})")
+        D, bps = eq.shape[-1], demap_kernel.MODULATIONS[mod][1]
+        io = 8 * B * S * D + 4 * B * (1 if broadcast else S) * D + 4 * B * S * D * bps
+        bound = io / HBM_BYTES_PER_S * 1e6
+        us, how = kernel_us(lambda: demap_kernel.demap(eq, nv, ce, mod), "ofdm_demap_kernel")
+        plain = cuda_ms(lambda: demod.demap_plain(eq, nv, ce), reps=20)
+        log(f"[3d ofdm_demap] {cell} [{B}, {S}, {D}] {mod}: equal bit for bit; {us:.2f} us per "
+            f"launch ({how}), bound {bound:.2f} us ({io / 1e6:.3f} MB), {bound / us:.1%} of "
+            f"it; plain version {plain[0]:.4f} ms (min {plain[1]:.4f}, max {plain[2]:.4f}) "
+            f"({card})")
+        by_cell[cell] = {"device_us": us, "bound_us": bound, "plain_ms": plain[0],
+                         "shape": [B, S, D]}
+    main = by_cell["ofdm_qam64_r34"]
+    return {"name": "ofdm_demap", "route": "cuda", "source": "ria_tpu_torch/csrc/ofdm_demap.cu",
+            "replaces": None, "launches_per_call": 1, "device_us": main["device_us"],
+            "ms": main["device_us"] / 1e3, "plain_ms": main["plain_ms"],
+            "bound_us": main["bound_us"], "bound_ms": main["bound_us"] / 1e3,
+            "bound_by": "bytes", "library_ms": None, "by_cell": by_cell}
 
 
 def run_cli(argv: list[str]) -> tuple[int, str, str]:
@@ -1699,6 +1770,9 @@ def main() -> int:
     # -- 3c. the Schmidl-Cox search's kernels ------------------------------------
     sc_entry = sc_search_phase(card, dev)
 
+    # -- 3d. the OFDM demodulator's demap stage ---------------------------------
+    demap_entry = ofdm_demap_phase(card, dev)
+
     # -- 4. main path ---------------------------------------------------------
     cfg, ncw, batch, window = geometry(production=True)
     audio, info = _make_batch(cfg, ncw, batch, window, seed=0, production=True, device=dev)
@@ -1761,7 +1835,11 @@ def main() -> int:
         if launch_count("sc_coarse") != 1:
             raise AssertionError(f"the OFDM chain ran {launch_count('sc_coarse')} "
                                  "Schmidl-Cox searches through the kernels; 1 expected")
+        if launch_count("ofdm_demap") != 1:
+            raise AssertionError(f"the OFDM chain launched the demap kernel "
+                                 f"{launch_count('ofdm_demap')} times; 1 expected")
         sc_entry["launches"] = launch_count("sc_coarse")
+        demap_entry["launches"] = launch_count("ofdm_demap")
         det = o_out.detected.cpu().numpy()
         ok = o_out.cw_success.cpu().numpy()
         tag = (f"[4b OFDM] config #{config} {geom.cfg.modulation} {geom.rate} at "
@@ -2361,6 +2439,7 @@ def main() -> int:
                     "card": card}))
     kernels.append(zoom_entry)
     kernels.append(sc_entry)
+    kernels.append(demap_entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -57,6 +57,7 @@ from ria_tpu_torch.sync.chirp import window_slice
 from ria_tpu_torch.utils.device import resolve_device
 from ria_tpu_torch.utils.mt19937 import MT19937
 from ria_tpu_torch.utils.trace import span
+from ria_tpu_torch.wave import demap_kernel
 
 PILOT_RNG_SEED = 0x50494C54
 MAX_LLR = 20.0
@@ -751,6 +752,16 @@ EQ_PATHS: collections.Counter[str] = collections.Counter()
 _EQ_LOCK = threading.Lock()
 
 
+def demaps_on_kernel(path: str, mod: str, device: torch.device) -> bool:
+    """Whether ``from_bins`` demaps with the ``ofdm_demap`` kernel
+    (``wave/demap_kernel.py``): on a card, on the symbol-parallel paths
+    ("pilot_tracking", "common_phase"), for the modulations the kernel has.
+    Everything else takes ``OFDMDemodulator.demap_plain`` (or the adaptive
+    and D8PSK loops)."""
+    return (device.type == "cuda" and path in ("pilot_tracking", "common_phase")
+            and mod in demap_kernel.MODULATIONS)
+
+
 def _demap(mod: str, eq: torch.Tensor, prev: torch.Tensor, nv: torch.Tensor,
            table: torch.Tensor | None = None) -> torch.Tensor:
     """Per-carrier demap -> LLRs [..., D, bps]. ``prev`` only for
@@ -891,7 +902,12 @@ class OFDMDemodulator(nn.Module):
 
     Buffers: the float32 time ramp of the downmix (``t``), the data and
     pilot bin indices, the known LTS and pilot values, the pilot
-    interpolation matrix (``w_t``) and the constellation (``table``).
+    interpolation matrix (``w_t``) and the constellation (``table``).  On a
+    card DQPSK and QAM64 demap with the CUDA kernel of
+    ``wave/demap_kernel.py`` (loaded here, so that the first call pays
+    nothing for it), everything else with :meth:`demap_plain` and the
+    sequential loops; the kernel and :meth:`demap_plain` agree bit for bit on
+    the card.
     """
 
     def __init__(self, cfg: OFDMConfig, num_data_symbols: int, training_symbols: int = 2,
@@ -918,6 +934,10 @@ class OFDMDemodulator(nn.Module):
             if self.P > 1 else None)
         self.register_buffer("table", torch.as_tensor(constellation_table(cfg.modulation),
                                                       device=dev))
+        # Pilot tracking or not, a path that is not adaptive or D8PSK is
+        # symbol-parallel.
+        if demaps_on_kernel(self._path(False), cfg.modulation, dev):
+            demap_kernel.load()
 
     def forward(self, samples: torch.Tensor, cfo_hz: torch.Tensor) -> OFDMDemodResult:
         cfg = self.cfg
@@ -937,15 +957,10 @@ class OFDMDemodulator(nn.Module):
         """Back half of the demodulator from the per-symbol carrier bins
         Y [..., T+S, D] (and the pilots' [..., T+S, P])."""
         cfg = self.cfg
-        T, S, D = self.T, self.S, self.D
+        T = self.T
         mod = cfg.modulation
         tracking = mod in COHERENT and Y_pilot is not None and self.P > 1
-        if cfg.adaptive_eq and mod in COHERENT:
-            path = "adaptive"
-        elif mod == "D8PSK":
-            path = "d8psk"
-        else:
-            path = "pilot_tracking" if tracking else "common_phase"
+        path = self._path(tracking)
         with _EQ_LOCK:
             EQ_PATHS[path] += 1
 
@@ -1026,26 +1041,46 @@ class OFDMDemodulator(nn.Module):
         snr_db = 10.0 * torch.log10(torch.clamp_min(avg_h_power[..., 0] / noise_var, 1e-6))
 
         with span("demod.demap"):
-            if cfg.adaptive_eq and mod in COHERENT:
+            if path == "adaptive":
                 llrs, eq = self._adaptive(Yd, H_data, noise_var, ce_margin)
-            elif mod == "D8PSK":
-                llrs = self._d8psk(eq, carrier_nv, ce_margin, fading)
+                soft = llrs.flatten(-3)
+            elif path == "d8psk":
+                soft = self._d8psk(eq, carrier_nv, ce_margin, fading).flatten(-3)
+            elif demaps_on_kernel(path, mod, eq.device):
+                soft = demap_kernel.demap(eq, carrier_nv, ce_margin, mod)
             else:
-                # Symbol-parallel path: the differential reference is the
-                # previous symbol's equalized value, and the EMA/variance
-                # instability chain is a first-order linear recurrence.
-                mags = torch.abs(eq)                       # [..., S, D]
-                ema_before = _affine_prefix(mags, mags[..., 0, :], MAG_EMA_ALPHA)
-                delta = mags - ema_before
-                var_before = _affine_prefix(delta * delta, torch.zeros_like(mags[..., 0, :]),
-                                            MAG_EMA_ALPHA)
-                norm_var = var_before / torch.clamp_min(ema_before * ema_before, 1e-6)
-                nv_eff = carrier_nv * ce_margin * (1.0 + CARRIER_ADAPTIVE_K * norm_var)
-                prev_all = torch.cat([torch.ones_like(eq[..., :1, :]), eq[..., :-1, :]], dim=-2)
-                llrs = _demap(mod, eq, prev_all, nv_eff, self.table)  # [..., S, D, bps]
-            soft = llrs.reshape(llrs.shape[:-3] + (S * D * BITS_PER_SYMBOL[mod],))
+                soft = self.demap_plain(eq, carrier_nv, ce_margin)
         return OFDMDemodResult(soft_bits=soft, snr_db=snr_db, noise_var=noise_var,
                                fading_index=fading, channel_mag=h_mag, symbols=eq)
+
+    def _path(self, tracking: bool) -> str:
+        """The equaliser path of a ``from_bins`` call (``EQ_PATHS``'s names);
+        ``tracking``: coherent with two or more pilots' bins."""
+        if self.cfg.adaptive_eq and self.cfg.modulation in COHERENT:
+            return "adaptive"
+        if self.cfg.modulation == "D8PSK":
+            return "d8psk"
+        return "pilot_tracking" if tracking else "common_phase"
+
+    def demap_plain(self, eq: torch.Tensor, carrier_nv: torch.Tensor,
+                    ce_margin: float) -> torch.Tensor:
+        """The symbol-parallel demap in PyTorch operations: soft [..., S * D *
+        bps] of eq [..., S, D] and carrier_nv (eq's shape, any strides).  What
+        CPU tensors and the kernel's other modulations run, and what the
+        ``ofdm_demap`` kernel computes on the card.  The differential
+        reference is the previous symbol's equalized value, and the
+        EMA/variance instability chain is a first-order linear recurrence."""
+        mod = self.cfg.modulation
+        mags = torch.abs(eq)                       # [..., S, D]
+        ema_before = _affine_prefix(mags, mags[..., 0, :], MAG_EMA_ALPHA)
+        delta = mags - ema_before
+        var_before = _affine_prefix(delta * delta, torch.zeros_like(mags[..., 0, :]),
+                                    MAG_EMA_ALPHA)
+        norm_var = var_before / torch.clamp_min(ema_before * ema_before, 1e-6)
+        nv_eff = carrier_nv * ce_margin * (1.0 + CARRIER_ADAPTIVE_K * norm_var)
+        prev_all = torch.cat([torch.ones_like(eq[..., :1, :]), eq[..., :-1, :]], dim=-2)
+        llrs = _demap(mod, eq, prev_all, nv_eff, self.table)  # [..., S, D, bps]
+        return llrs.flatten(-3)
 
     def _d8psk(self, eq, carrier_nv, ce_margin, fading_pre):
         """Sequential D8PSK: the two-pass phase correction (gated on a

@@ -125,7 +125,7 @@ class _Library:
 ], ids=["k1", "zoom_front", "build"])
 def test_a_first_load_compiles_its_own_library(load, want, stand_in_compiler, monkeypatch):
     """Loading K1's library compiles ``ldpc_bp`` alone, loading the window
-    pass's compiles ``zoom_front`` alone, and ``build()`` compiles all six."""
+    pass's compiles ``zoom_front`` alone, and ``build()`` compiles all seven."""
     log, _ = stand_in_compiler
     monkeypatch.setattr(cuda_kernels, "_LOADED", {})
     monkeypatch.setattr(ctypes, "CDLL", _Library)
@@ -165,7 +165,7 @@ def test_library_names_keep_their_recipe():
             "-Xptxas -v")
     want = {name: (src, " ".join((nvcc, *defines)))
             for name, (src, defines) in cuda_kernels.LIBRARIES.items()}
-    assert len(want) == 6
+    assert len(want) == 7
     for name, (src, flags) in want.items():
         digest = hashlib.sha256(src.read_bytes() + flags.encode()).hexdigest()[:16]
         assert cuda_kernels.library_path(src, cuda_kernels.LIBRARIES[name][1]) == (
