@@ -16,6 +16,12 @@ and the Schmidl-Cox search), ``rx.demod`` (frame slice, demodulation,
 deinterleave) and ``rx.decode``: each keeps its recent host intervals, and
 a profiled call splits by stage (``tools/bench_profile.py``).  Building a
 pipeline is the span ``setup.rx_pipeline``.
+
+A HARQ round (:class:`HarqRxPipeline`) runs the MC-DPSK chain's sync and
+demod over every received copy of each channel's frame at once, decodes
+each copy alone in ``rx.decode`` and, in the span ``rx.chase`` beside it,
+sums the LLRs of the copies that failed and decodes the sums
+(``fec/chase.py::chase_round``), on the device throughout.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ria_tpu_torch.fec.chase import MAX_COMBINES, chase_round
 from ria_tpu_torch.fec.interleave import FRAME_CODEWORDS, channel_perm, frame_perm
 from ria_tpu_torch.fec.ldpc import LDPCDecoder, ldpc_decoder
 from ria_tpu_torch.fec.ldpc_matrix import RECOMMENDED_ITERS
@@ -152,6 +159,74 @@ def make_rx_pipeline(cfg: MCDPSKConfig, rate: str, num_codewords: int,
     (``ria_tpu/phy/pipeline.py:42-51``), while K1 takes every CUDA batch
     as it comes (:func:`_pick_decoder`)."""
     return RxPipeline(cfg, rate, num_codewords, window_samples, min_sum_factor, device)
+
+
+class HarqRxBatchResult(NamedTuple):
+    detected: torch.Tensor    # [B, R] bool, each copy's
+    start: torch.Tensor       # [B, R] int32 chirp start
+    cfo_hz: torch.Tensor      # [B, R]
+    cw_success: torch.Tensor  # [B, NCW] bool, the round's outcome
+    info_bits: torch.Tensor   # [B, NCW, k] uint8
+    iterations: torch.Tensor  # [B, NCW]
+    snr_db: torch.Tensor      # [B, R]
+    source: torch.Tensor      # [B, NCW] int8, fec/chase.py::walk_position; -1 none
+
+
+class HarqRxPipeline(nn.Module):
+    """audio [B, R, window], each channel's R transmissions of one frame in
+    arrival order -> HarqRxBatchResult: one HARQ round with chase combining.
+
+    The B * R windows go through :meth:`RxPipeline.soft_bits` in one pass;
+    one decoder call decodes every copy alone (``rx.decode``), and
+    :func:`~ria_tpu_torch.fec.chase.chase_round` walks the copies as the
+    host's chase cache does, decoding each sum in one more call
+    (``rx.chase``): 1 + (R - 1) decoder launches a round, every one at the
+    configuration's min-sum factor and iteration cap."""
+
+    def __init__(self, cfg: MCDPSKConfig, rate: str, num_codewords: int,
+                 window_samples: int, copies: int, min_sum_factor: float = 0.75,
+                 device: str | torch.device = "cuda"):
+        if not 1 <= copies <= MAX_COMBINES:
+            raise ValueError(f"copies must lie in [1, {MAX_COMBINES}], got {copies}")
+        super().__init__()
+        self.copies = copies
+        self.rx = RxPipeline(cfg, rate, num_codewords, window_samples, min_sum_factor, device)
+
+    def _decode(self, llrs: torch.Tensor):
+        factors = torch.full((llrs.shape[0],), self.rx.min_sum_factor, dtype=torch.float32,
+                             device=llrs.device)
+        return self.rx.decoder(llrs, factors)
+
+    def forward(self, audio: torch.Tensor) -> HarqRxBatchResult:
+        B, R, window = audio.shape
+        if R != self.copies:
+            raise ValueError(f"audio holds {R} copies a channel, the round {self.copies}")
+        sync, demod, soft = self.rx.soft_bits(audio.reshape(B * R, window))
+        with span("rx.decode"):
+            alone = self._decode(soft)
+        with span("rx.chase"):
+            out = chase_round(soft.reshape(B, R, self.rx.num_codewords, LDPC_BITS),
+                              sync.detected.reshape(B, R), alone, self._decode)
+            return HarqRxBatchResult(
+                detected=sync.detected.reshape(B, R),
+                start=sync.start.reshape(B, R),
+                cfo_hz=sync.cfo_hz.reshape(B, R),
+                cw_success=out.cw_success,
+                info_bits=out.info_bits,
+                iterations=out.iterations,
+                snr_db=demod.snr_estimate_db.reshape(B, R),
+                source=out.source,
+            )
+
+
+def make_harq_rx_pipeline(cfg: MCDPSKConfig, rate: str, num_codewords: int,
+                          window_samples: int, copies: int, min_sum_factor: float = 0.75,
+                          device: str | torch.device = "cuda") -> HarqRxPipeline:
+    """One batched HARQ round on ``device`` (the card by default;
+    ``device="cpu"`` for the host): audio [B, copies, window_samples] ->
+    HarqRxBatchResult (see :class:`HarqRxPipeline`)."""
+    return HarqRxPipeline(cfg, rate, num_codewords, window_samples, copies, min_sum_factor,
+                          device)
 
 
 class OFDMRxBatchResult(NamedTuple):
