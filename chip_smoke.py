@@ -43,11 +43,19 @@ and raising on failure:
    frame (S = 200, the chains in the output's slots): equal bit for bit; its device µs
    beside its bound from the bytes and the share of it, and the plain
    version's ms;
+3e. the chirp search's fine stage (``csrc/chirp_fine.cu``) against its plain
+   path (``sync.chirp.refine_front_plain``, ``refine_pick_plain``,
+   ``median_plain``) on the card, at both MC-DPSK cells' shapes (256
+   windows of 207,328 samples; 128 of 606,688): every output equal bit for
+   bit; each kernel's device µs beside its bound from the bytes and the
+   share of it, and a refinement with the median on the card with the
+   kernels and with the plain path;
 4. main path: the MC-DPSK RX chain at the bench.py chain-1 geometry (64
    channels, window 207,328, R1/4, 4 codewords, 10 dB AWGN) from the port's
    own TX, checked against the transmitted bits and against the same chain
    on the CPU, with K1's launch count from that run, exactly one launch
-   of the window pass and no Schmidl-Cox search on the card;
+   of the window pass, two of each refinement kernel and one median, and
+   no Schmidl-Cox search on the card;
 4b. OFDM chains: bench.py's chains 2 and 3 (north-star configs #3, DQPSK
    R1/2 at 15 dB, window 42,720, and #4, QAM64 R3/4 at 25 dB, window
    26,160; 64 channels each) from the port's own TX, each call one
@@ -584,6 +592,85 @@ def ofdm_demap_phase(card: str, dev: torch.device) -> dict:
             "ms": main["device_us"] / 1e3, "plain_ms": main["plain_ms"],
             "bound_us": main["bound_us"], "bound_ms": main["bound_us"] / 1e3,
             "bound_by": "bytes", "library_ms": None, "by_cell": by_cell}
+
+
+def chirp_fine_phase(card: str, dev: torch.device) -> dict:
+    """Phase 3e: the chirp search's fine-stage kernels against their plain
+    versions on the card and timed, at both MC-DPSK cells' shapes (a
+    zoom-branch call's up-chirp refinement and its CFAR median); returns
+    their ``kernels`` entry."""
+    from ria_tpu_torch.sync import chirp, fine_kernel
+    from ria_tpu_torch.utils.timing import cuda_ms, kernel_us
+
+    shapes = {"mcdpsk_r14": (256, 207328), "mcdpsk_s4_r14": (128, 606688)}
+    R = chirp._ZOOM_REFINE
+    by_cell = {}
+    for cell, (B, n) in shapes.items():
+        det = chirp.chirp_detector(chirp.ChirpConfig(), n, dev)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(B)
+        x = 0.35 * torch.randn((B, n), generator=gen, device=dev)
+        pos = torch.randint(0, (n - det.chirp_len) // 16, (B,), generator=gen, device=dev,
+                            dtype=torch.int32) * 16
+        nb = det.nfft // 16
+        m = -(-(n - det.chirp_len) // 16)
+        norm = torch.rand((B, nb), generator=gen, device=dev) * 0.05
+        front = fine_kernel.refine_front(x, pos, det.chirp_len, R)
+        cr, ci = front[1] @ det.up_mr, front[1] @ det.up_mi
+        got = [*front, *chirp.refine_pick(cr, ci, front[2], front[0], det.energy),
+               chirp._median(norm[:, :m])]
+        plain_front = chirp.refine_front_plain(x, pos, det.chirp_len, R)
+        want = [*plain_front, *chirp.refine_pick_plain(cr, ci, plain_front[2], plain_front[0],
+                                                        det.energy),
+                chirp.median_plain(norm[:, :m])]
+        torch.cuda.synchronize()
+        for name, g, w in zip(("start", "y", "win", "lag", "val", "median"), got, want):
+            gb, wb = (v.view(torch.int32) if v.dtype == torch.float32 else v for v in (g, w))
+            if not torch.equal(gb, wb):
+                raise AssertionError(f"chirp fine stage: {name} differs from the plain path "
+                                     f"({cell})")
+        L, nwin = det.chirp_len + 2 * R, 2 * R + 1
+        # Each input byte read once, each output byte written once.
+        runs = {"chirp_refine_front": (lambda: fine_kernel.refine_front(x, pos, det.chirp_len, R),
+                                       8 * B * L + 4 * B * nwin + 8 * B),
+                "chirp_refine_pick": (lambda: chirp.refine_pick(cr, ci, front[2], front[0],
+                                                                det.energy),
+                                      12 * B * nwin + 12 * B),
+                "median_select": (lambda: chirp._median(norm[:, :m]), 4 * B * m + 4 * B)}
+        kernels = {}
+        for name, (fn, nbytes) in runs.items():
+            us, how = kernel_us(fn, f"{name}_kernel")
+            bound = nbytes / HBM_BYTES_PER_S * 1e6
+            kernels[name] = {"device_us": us, "bound_us": bound, "bytes": nbytes}
+            log(f"[3e chirp_fine] {cell} B={B}: {name} {us:.2f} us per launch ({how}), bound "
+                f"{bound:.2f} us ({nbytes / 1e6:.3f} MB), {bound / us:.1%} of it ({card})")
+
+        def plain_stage():
+            p = chirp.refine_front_plain(x, pos, det.chirp_len, R)
+            chirp.refine_pick_plain(p[1] @ det.up_mr, p[1] @ det.up_mi, p[2], p[0], det.energy)
+            chirp.median_plain(norm[:, :m])
+
+        def kernel_stage():
+            k = fine_kernel.refine_front(x, pos, det.chirp_len, R)
+            chirp.refine_pick(k[1] @ det.up_mr, k[1] @ det.up_mi, k[2], k[0], det.energy)
+            chirp._median(norm[:, :m])
+
+        stage = cuda_ms(kernel_stage, reps=20)
+        plain = cuda_ms(plain_stage, reps=10)
+        log(f"[3e chirp_fine] {cell} B={B} n={n}: a refinement and the median {stage[0]:.4f} ms "
+            f"on the card with the kernels (min {stage[1]:.4f}, max {stage[2]:.4f}), "
+            f"{plain[0]:.4f} ms with the plain path (min {plain[1]:.4f}, max {plain[2]:.4f}); "
+            f"every output equal bit for bit ({card})")
+        by_cell[cell] = {"kernels": kernels, "stage_ms": stage[0], "plain_ms": plain[0],
+                         "B": B, "n": n}
+    main = by_cell["mcdpsk_r14"]
+    device_us = sum(k["device_us"] for k in main["kernels"].values())
+    bound_us = sum(k["bound_us"] for k in main["kernels"].values())
+    return {"name": "chirp_fine", "route": "cuda", "source": "ria_tpu_torch/csrc/chirp_fine.cu",
+            "replaces": None, "launches_per_call": 5, "device_us": device_us,
+            "ms": main["stage_ms"], "plain_ms": main["plain_ms"], "bound_us": bound_us,
+            "bound_ms": bound_us / 1e3, "bound_by": "bytes", "library_ms": None,
+            "by_cell": by_cell}
 
 
 def run_cli(argv: list[str]) -> tuple[int, str, str]:
@@ -1773,6 +1860,9 @@ def main() -> int:
     # -- 3d. the OFDM demodulator's demap stage ---------------------------------
     demap_entry = ofdm_demap_phase(card, dev)
 
+    # -- 3e. the chirp search's fine stage -----------------------------------------
+    fine_entry = chirp_fine_phase(card, dev)
+
     # -- 4. main path ---------------------------------------------------------
     cfg, ncw, batch, window = geometry(production=True)
     audio, info = _make_batch(cfg, ncw, batch, window, seed=0, production=True, device=dev)
@@ -1786,7 +1876,12 @@ def main() -> int:
                              f"{launch_count('zoom_front')} times; 1 expected")
     if launch_count("sc_coarse"):
         raise AssertionError("the MC-DPSK main path ran a Schmidl-Cox search")
+    fine = [launch_count(e) for e in ("chirp_refine_front", "chirp_refine_pick", "median_select")]
+    if fine != [2, 2, 1]:
+        raise AssertionError(f"the main path launched the fine stage's kernels {fine} times; "
+                             "[2, 2, 1] expected")
     zoom_entry["launches"] = launch_count("zoom_front")
+    fine_entry["launches"] = sum(fine)
     launches = launch_count(K1)
     launches_v1_main = (launch_count(K2), launch_count(K2_BF16))
     det = out.detected.cpu().numpy()
@@ -2440,6 +2535,7 @@ def main() -> int:
     kernels.append(zoom_entry)
     kernels.append(sc_entry)
     kernels.append(demap_entry)
+    kernels.append(fine_entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

@@ -21,7 +21,11 @@ table builders are copied verbatim from the reference package, so the
 complex64 constants match bit for bit; the FFTs and the refinement matmuls
 are torch ops (cuFFT, cuBLAS on the card), as they were XLA ops there.  On
 the card the zoom branch's pass over the window (mix, box-sum and block
-energy) is one CUDA kernel (``csrc/zoom_front.cu``, :func:`zoom_front`).
+energy) is one CUDA kernel (``csrc/zoom_front.cu``, :func:`zoom_front`), and
+its fine stage three (``csrc/chirp_fine.cu``): each refinement's slice and
+window energies before its matmuls (:func:`refine_front`), its pick after
+them (:func:`refine_pick`), and the CFAR floor's median (:func:`_median`, on
+either branch).
 """
 
 from __future__ import annotations
@@ -34,7 +38,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ria_tpu_torch.sync import zoom_kernel
+from ria_tpu_torch.sync import fine_kernel, zoom_kernel
 from ria_tpu_torch.utils.device import resolve_device, wide_cumsum
 from ria_tpu_torch.utils.trace import span
 
@@ -132,6 +136,10 @@ _ZOOM_DECIM = 16
 # the true peak is always inside the refined search).
 _ZOOM_REFINE = 24
 _ZOOM_MIN_NFFT = 131072
+# The refinement's -60 dB energy floor (a share of the slice's greatest window
+# energy) and its least denominator.
+_REFINE_FLOOR = 1e-6
+_REFINE_DENOM_MIN = 1e-20
 
 
 @functools.lru_cache(maxsize=None)
@@ -200,12 +208,21 @@ def zoom_front(x: torch.Tensor, rot: torch.Tensor,
     return zoom_kernel.zoom_front(x, rot, nb)
 
 
-def _median(x: torch.Tensor) -> torch.Tensor:
+def median_plain(x: torch.Tensor) -> torch.Tensor:
     """Median over the last axis with numpy/JAX semantics: for an even count,
     the mean of the two middle values (``torch.median`` returns the lower)."""
     n = x.shape[-1]
     s = torch.sort(x, dim=-1).values
     return 0.5 * (s[..., (n - 1) // 2] + s[..., n // 2])
+
+
+def _median(x: torch.Tensor) -> torch.Tensor:
+    """:func:`median_plain`: on the CPU by it, on the card by the exact
+    selection kernel (``sync/fine_kernel.py``), which takes x [B, m] float32
+    and raises on a tensor it does not take."""
+    if x.device.type == "cpu":
+        return median_plain(x)
+    return fine_kernel.median_select(x)
 
 
 def window_slice(x: torch.Tensor, start: torch.Tensor, length: int) -> torch.Tensor:
@@ -214,6 +231,61 @@ def window_slice(x: torch.Tensor, start: torch.Tensor, length: int) -> torch.Ten
     start = torch.clamp(start.long(), 0, max(x.shape[-1] - length, 0))
     idx = start[:, None] + torch.arange(length, device=x.device)
     return torch.gather(x, 1, idx)
+
+
+def refine_front_plain(x: torch.Tensor, coarse_pos: torch.Tensor, chirp_len: int,
+                       R: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """A peak refinement's work before its matmuls, for x [B, n] float32 and
+    the coarse peaks coarse_pos [B] int32, L = chirp_len + 2R:
+
+    - start [B] int32: the slice's first sample, the peak less R clamped
+      into the window;
+    - y [B, L] float32: the slice x[b, start : start + L];
+    - win [B, 2R + 1] float32: the energy of the slice's chirp_len samples
+      from each lag j, a difference of float64 prefix sums of the squares,
+      each rounded to float32 (``wide_cumsum``).
+    """
+    L = chirp_len + 2 * R
+    start = torch.clamp(coarse_pos - R, 0, x.shape[-1] - L)
+    y = window_slice(x, start, L)
+    zero = torch.zeros(y.shape[:-1] + (1,), dtype=y.dtype, device=y.device)
+    csum = torch.cat([zero, wide_cumsum(y * y, dim=-1)], dim=-1)
+    win = csum[..., chirp_len : chirp_len + 2 * R + 1] - csum[..., : 2 * R + 1]
+    return start, y, win
+
+
+def refine_front(x: torch.Tensor, coarse_pos: torch.Tensor, chirp_len: int,
+                 R: int) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """:func:`refine_front_plain`'s (start, y, win): on the CPU by it, on the
+    card by the CUDA kernel (``sync/fine_kernel.py``), which raises on a
+    tensor it does not take."""
+    if x.device.type == "cpu":
+        return refine_front_plain(x, coarse_pos, chirp_len, R)
+    return fine_kernel.refine_front(x, coarse_pos, chirp_len, R)
+
+
+def refine_pick_plain(cr: torch.Tensor, ci: torch.Tensor, win: torch.Tensor,
+                      start: torch.Tensor, energy: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """A peak refinement's work after its matmuls: from the slice's
+    correlations cr, ci [B, 2R + 1] with the template at each lag and the
+    window energies win [B, 2R + 1], the lag of the greatest normalized
+    correlation (start + j, [B] int32) and its value [B]."""
+    mag2 = cr * cr + ci * ci
+    win_floor = _REFINE_FLOOR * torch.amax(win, dim=-1, keepdim=True)
+    corr2 = mag2 / torch.clamp_min(torch.maximum(win, win_floor) * energy, _REFINE_DENOM_MIN)
+    j = torch.argmax(corr2, dim=-1)
+    val = torch.sqrt(torch.gather(corr2, 1, j[:, None])[:, 0])
+    return (start + j).to(torch.int32), val
+
+
+def refine_pick(cr: torch.Tensor, ci: torch.Tensor, win: torch.Tensor, start: torch.Tensor,
+                energy: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """:func:`refine_pick_plain`'s (lag, val): on the CPU by it, on the card
+    by the CUDA kernel (``sync/fine_kernel.py``), which raises on a tensor it
+    does not take."""
+    if cr.device.type == "cpu":
+        return refine_pick_plain(cr, ci, win, start, energy)
+    return fine_kernel.refine_pick(cr, ci, win, start, energy, _REFINE_FLOOR, _REFINE_DENOM_MIN)
 
 
 def _div(a: torch.Tensor, b: float) -> torch.Tensor:
@@ -229,8 +301,9 @@ class ChirpDetector(nn.Module):
 
     Buffers: the conjugated template spectra (full-rate branch), or the
     decimated band templates, the mixing ramp and the refinement matrices
-    (zoom branch).  On a CUDA device the zoom branch loads its window
-    pass's kernel here, so that the first call pays nothing for it."""
+    (zoom branch).  On a CUDA device the detector loads its kernels here
+    (the zoom branch's window pass, and the fine stage's, whose median both
+    branches take), so that the first call pays nothing for them."""
 
     def __init__(self, cfg: ChirpConfig, num_samples: int,
                  device: str | torch.device = "cuda"):
@@ -262,6 +335,8 @@ class ChirpDetector(nn.Module):
             for name, t in (("up_fft", up_t), ("down_fft", down_t)):
                 spec = torch.conj(torch.fft.fft(torch.as_tensor(t, device=dev), self.nfft))
                 self.register_buffer(name, spec.resolve_conj())
+        if dev.type == "cuda":
+            fine_kernel.load()
         self.energy = energy
 
     def forward(self, samples: torch.Tensor) -> ChirpSyncResult:
@@ -345,25 +420,14 @@ class ChirpDetector(nn.Module):
 
     def _refine_peak(self, x: torch.Tensor, coarse_pos: torch.Tensor,
                      Mr: torch.Tensor, Mi: torch.Tensor):
-        """Exact normalized correlation around a coarse peak (batched).
+        """Exact normalized correlation around a coarse peak (batched): the
+        slice and its window energies, its correlation with the template at
+        each of the 2R + 1 lags (two matmuls, cuBLAS on the card), the pick.
 
         x: [B, n]; coarse_pos: [B] int32.  Returns (lag [B] int32, corr [B]).
         """
-        R = _ZOOM_REFINE
-        L = self.chirp_len + 2 * R
-        start = torch.clamp(coarse_pos - R, 0, self.n - L)
-        y = window_slice(x, start, L)
-        cr = y @ Mr
-        ci = y @ Mi
-        mag2 = cr * cr + ci * ci                       # [B, 2R+1]
-        zero = torch.zeros(y.shape[:-1] + (1,), dtype=y.dtype, device=y.device)
-        csum = torch.cat([zero, wide_cumsum(y * y, dim=-1)], dim=-1)
-        win = csum[..., self.chirp_len : self.chirp_len + 2 * R + 1] - csum[..., : 2 * R + 1]
-        win_floor = 1e-6 * torch.amax(win, dim=-1, keepdim=True)
-        corr2 = mag2 / torch.clamp_min(torch.maximum(win, win_floor) * self.energy, 1e-20)
-        j = torch.argmax(corr2, dim=-1)
-        val = torch.sqrt(torch.gather(corr2, 1, j[:, None])[:, 0])
-        return (start + j).to(torch.int32), val
+        start, y, win = refine_front(x, coarse_pos, self.chirp_len, _ZOOM_REFINE)
+        return refine_pick(y @ Mr, y @ Mi, win, start, self.energy)
 
     def _zoom(self, x: torch.Tensor) -> ChirpSyncResult:
         D = _ZOOM_DECIM

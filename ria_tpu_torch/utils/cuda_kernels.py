@@ -34,11 +34,12 @@ from ria_tpu_torch.utils.native_build import Build
 _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-# Each library: (source, extra nvcc flags).  ``zoom_front``, ``sc_search``
-# and ``ofdm_demap`` link the shared CUDA runtime, the one PyTorch has loaded:
-# their kernels open or fill the chains' spans' device-side ranges in a
-# profile, and a profile taken late in a process missed launches made through
-# a runtime linked into the library itself (torch 2.11, an NVIDIA H100).
+# Each library: (source, extra nvcc flags).  ``zoom_front``, ``sc_search``,
+# ``ofdm_demap`` and ``chirp_fine`` link the shared CUDA runtime, the one
+# PyTorch has loaded: their kernels open or fill the chains' spans'
+# device-side ranges in a profile, and a profile taken late in a process
+# missed launches made through a runtime linked into the library itself
+# (torch 2.11, an NVIDIA H100).
 LIBRARIES = {
     "ldpc_bp": (_CSRC / "ldpc_bp.cu", ()),
     "ldpc_bp_bf16": (_CSRC / "ldpc_bp_bf16.cu", ()),
@@ -47,6 +48,7 @@ LIBRARIES = {
     "zoom_front": (_CSRC / "zoom_front.cu", ("-cudart", "shared")),
     "sc_search": (_CSRC / "sc_search.cu", ("-cudart", "shared")),
     "ofdm_demap": (_CSRC / "ofdm_demap.cu", ("-cudart", "shared")),
+    "chirp_fine": (_CSRC / "chirp_fine.cu", ("-cudart", "shared")),
 }
 
 _LOAD_LOCK = threading.Lock()

@@ -6,8 +6,10 @@ host runtime (``native/ria_native.cpp``) with ``g++`` through it, and
 
 A library is ``<stem>_<hash>.so`` under ``build/ria_tpu_torch/`` at the root of
 the checkout, where ``<hash>`` is the first 16 hex digits of the sha256 of the
-source's bytes and its flags joined by spaces, so an edited source or another
-flag builds anew; deleting the directory forces a rebuild.  One
+source's bytes, those of each header it includes by a quoted name (found
+beside it, each once, in the order met), and its flags joined by spaces, so an
+edited source or header or another flag builds anew; deleting the directory
+forces a rebuild.  One
 :func:`compile_libraries` call runs at a time in a process (two threads whose
 first use lands together must not compile one library twice); it starts one
 compiler per missing library, all at once.  Each compile writes
@@ -19,6 +21,7 @@ from __future__ import annotations
 
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -36,9 +39,25 @@ class Build(NamedTuple):
     seconds: float   # wall time of the compile; 0 when already built
 
 
+_QUOTED_INCLUDE = re.compile(rb'^[ \t]*#[ \t]*include[ \t]*"([^"]+)"', re.M)
+
+
+def _source_bytes(source: Path, seen: set[Path]) -> bytes:
+    """``source``'s bytes, then those of each header it includes by a quoted
+    name, found beside it, in the order met and each once."""
+    seen.add(source)
+    text = source.read_bytes()
+    out = [text]
+    for name in _QUOTED_INCLUDE.findall(text):
+        header = source.parent / name.decode()
+        if header not in seen:
+            out.append(_source_bytes(header, seen))
+    return b"".join(out)
+
+
 def library_path(source: Path, flags: tuple[str, ...]) -> Path:
     """Where ``source`` built with ``flags`` lives."""
-    digest = hashlib.sha256(source.read_bytes() + " ".join(flags).encode()).hexdigest()
+    digest = hashlib.sha256(_source_bytes(source, set()) + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{source.stem}_{digest[:16]}.so"
 
 

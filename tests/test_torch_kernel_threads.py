@@ -158,16 +158,20 @@ def test_library_lives_under_build_named_by_its_source(name, tmp_path):
 
 
 def test_library_names_keep_their_recipe():
-    """Each library's file name is ``<stem>_<sha256 of the source's bytes and
-    its flags joined by spaces, 16 hex digits>.so``, with today's flags, so
-    that a library built before keeps its name."""
+    """Each library's file name is ``<stem>_<sha256 of the source's bytes, the
+    bytes of the header it includes, if any, and its flags joined by spaces,
+    16 hex digits>.so``, with today's flags, so that a library built before
+    keeps its name and an edit of the shared header renames both libraries
+    that include it."""
     nvcc = ("-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC "
             "-Xptxas -v")
     want = {name: (src, " ".join((nvcc, *defines)))
             for name, (src, defines) in cuda_kernels.LIBRARIES.items()}
-    assert len(want) == 7
+    assert len(want) == 8
+    header = (ROOT / "ria_tpu_torch" / "csrc" / "aten_order.cuh").read_bytes()
     for name, (src, flags) in want.items():
-        digest = hashlib.sha256(src.read_bytes() + flags.encode()).hexdigest()[:16]
+        headers = header if name in ("sc_search", "chirp_fine") else b""
+        digest = hashlib.sha256(src.read_bytes() + headers + flags.encode()).hexdigest()[:16]
         assert cuda_kernels.library_path(src, cuda_kernels.LIBRARIES[name][1]) == (
             ROOT / "build" / "ria_tpu_torch" / f"{src.stem}_{digest}.so"), name
     src = ROOT / "native" / "ria_native.cpp"
