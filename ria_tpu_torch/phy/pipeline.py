@@ -5,17 +5,18 @@ runs as one batched program for B independent channels at once:
 
 - MC-DPSK: dual-chirp sync search (batched FFT correlation), per-channel
   frame slice, mixer-bank demodulation, batched LDPC belief propagation;
-- OFDM: Schmidl-Cox search, frame slice, CP strip + 1024-pt FFT, LTS
-  channel estimate, MMSE (or pilot-tracking) equalization, soft demap,
-  frame and channel deinterleave as static gathers, batched LDPC BP.
+- OFDM: Schmidl-Cox search (or, for connected-mode data frames behind the
+  light preamble, the LTS-only search), frame slice, CP strip + 1024-pt
+  FFT, LTS channel estimate, MMSE (or pilot-tracking) equalization, soft
+  demap, frame and channel deinterleave as static gathers, batched LDPC BP.
 
 On a CUDA device the decoder is kernel K1 (``csrc/ldpc_bp.cu``).  Each RX
 call marks its three stages with ``utils/trace.span`` spans, ``rx.sync``
-(with ``sync.coarse`` and ``sync.fine`` inside it, in the chirp zoom search
-and the Schmidl-Cox search), ``rx.demod`` (frame slice, demodulation,
-deinterleave) and ``rx.decode``: each keeps its recent host intervals, and
-a profiled call splits by stage (``tools/bench_profile.py``).  Building a
-pipeline is the span ``setup.rx_pipeline``.
+(with ``sync.coarse`` and ``sync.fine`` inside it, in the chirp zoom search,
+the Schmidl-Cox search and the LTS search), ``rx.demod`` (frame slice,
+demodulation, deinterleave) and ``rx.decode``: each keeps its recent host
+intervals, and a profiled call splits by stage (``tools/bench_profile.py``).
+Building a pipeline is the span ``setup.rx_pipeline``.
 
 A HARQ round (:class:`HarqRxPipeline`) runs the MC-DPSK chain's sync and
 demod over every received copy of each channel's frame at once, decodes
@@ -26,6 +27,7 @@ sums the LLRs of the copies that failed and decodes the sums
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -45,7 +47,13 @@ from ria_tpu_torch.wave.mc_dpsk import (
     _synth_matrix,
     _training_matrix,
 )
-from ria_tpu_torch.wave.ofdm import OFDMConfig, OFDMDemodulator, SchmidlCoxDetector
+from ria_tpu_torch.wave.ofdm import (
+    LTSDetector,
+    OFDMConfig,
+    OFDMDemodulator,
+    SchmidlCoxDetector,
+    carrier_layout,
+)
 
 LDPC_BITS = 648
 
@@ -239,8 +247,36 @@ class OFDMRxBatchResult(NamedTuple):
     snr_db: torch.Tensor      # [B]
 
 
+# The LTS threshold of the light preamble's search (``wave/api.py``'s
+# ``lts_search(x, cfg)``), and the control profile's pilot layout: DQPSK with
+# pilot spacing 10 (``wave/api.py::_OFDMWaveformBase._rebuild``), whose LTS a
+# light frame carries when it holds a control frame.
+_LIGHT_THRESHOLD = 0.5
+_CONTROL_PROFILE = {"modulation": "DQPSK", "use_pilots": True, "pilot_spacing": 10}
+
+
+def _light_detector(cfg: OFDMConfig, window_samples: int, dev: torch.device) -> LTSDetector:
+    """The light preamble's LTS search over the data layout's template.  A
+    waveform searches the control profile's template too where its LTS
+    differs (``_light_lts_search``); a batched chain searches once, so it
+    refuses such a layout rather than miss its control frames silently."""
+    control = dataclasses.replace(cfg, **_CONTROL_PROFILE)
+    if not np.array_equal(carrier_layout(cfg)[1], carrier_layout(control)[1]):
+        raise ValueError(
+            f"the light preamble's LTS of {cfg.modulation} with pilot spacing "
+            f"{cfg.pilot_spacing if cfg.use_pilots else None} differs from the control "
+            "profile's (DQPSK, pilot spacing 10): a chain searches one template")
+    return LTSDetector(cfg, window_samples, _LIGHT_THRESHOLD, dev)
+
+
 class OFDMRxPipeline(nn.Module):
     """audio [B, window] -> OFDMRxBatchResult for fixed 4-codeword frames.
+
+    ``preamble`` names the frames' sync: ``"cox"``, the Schmidl-Cox
+    preamble (guard, 4 STS, 2 LTS) of the OFDM-COX waveform, or ``"lts"``,
+    the light preamble (2 LTS alone) that both OFDM waveforms send before
+    every data frame once a link is connected, found by the LTS search.
+    Either way ``lts_start`` is the first LTS symbol's sample.
 
     Buffers: the frame deinterleave gather (``frame_idx``, the inverse of
     ``apply_perm``'s scatter form: x[..., frame_perm()]) and, with
@@ -250,7 +286,9 @@ class OFDMRxPipeline(nn.Module):
 
     def __init__(self, cfg: OFDMConfig, rate: str, window_samples: int,
                  ci_bits: int | None = None, min_sum_factor: float = 0.9375,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", preamble: str = "cox"):
+        if preamble not in ("cox", "lts"):
+            raise ValueError(f"preamble {preamble!r}: 'cox' or 'lts'")
         with span("setup.rx_pipeline"):
             super().__init__()
             dev = resolve_device(device)
@@ -261,7 +299,8 @@ class OFDMRxPipeline(nn.Module):
             self.num_bits = FRAME_CODEWORDS * LDPC_BITS
             S = cfg.num_symbols_for_bits(self.num_bits)
             self.need = (2 + S) * cfg.symbol_samples
-            self.sync = SchmidlCoxDetector(cfg, window_samples, dev)
+            self.sync = (SchmidlCoxDetector(cfg, window_samples, dev) if preamble == "cox"
+                         else _light_detector(cfg, window_samples, dev))
             self.demod = OFDMDemodulator(cfg, S, 2, dev)
             self.register_buffer("frame_idx", torch.as_tensor(frame_perm(), device=dev))
             self.register_buffer("ci_idx", torch.as_tensor(channel_perm(ci_bits), device=dev)
@@ -309,13 +348,17 @@ class OFDMRxPipeline(nn.Module):
 def make_ofdm_rx_pipeline(cfg: OFDMConfig, rate: str, window_samples: int,
                           ci_bits: int | None = None, batch_hint: int = 0,
                           min_sum_factor: float = 0.9375,
-                          device: str | torch.device = "cuda") -> OFDMRxPipeline:
+                          device: str | torch.device = "cuda",
+                          preamble: str = "cox") -> OFDMRxPipeline:
     """Batched OFDM RX on ``device`` (the card by default; ``device="cpu"``
-    for the host): audio [B, window_samples] -> OFDMRxBatchResult.
+    for the host): audio [B, window_samples] -> OFDMRxBatchResult, for
+    frames behind the Schmidl-Cox preamble (``preamble="cox"``) or the
+    light one (``"lts"``; see :class:`OFDMRxPipeline`).
 
     ``batch_hint`` sits where the reference has it and changes nothing, as
     in :func:`make_rx_pipeline`."""
-    return OFDMRxPipeline(cfg, rate, window_samples, ci_bits, min_sum_factor, device)
+    return OFDMRxPipeline(cfg, rate, window_samples, ci_bits, min_sum_factor, device,
+                          preamble)
 
 
 class TxPipeline(nn.Module):

@@ -601,6 +601,14 @@ def schmidl_cox_search(samples: torch.Tensor, cfg: OFDMConfig) -> SCSyncResult:
 # RX: LTS search (light preamble)
 # ============================================================================
 
+# Searches the LTS detector dispatched ("searches") and the windows they held
+# ("windows"), since the caller last cleared it.  Both are known on the host,
+# so counting costs no device sync; it moves under a lock, as stations search
+# from threads of their own.
+LTS_SEARCHES: collections.Counter[str] = collections.Counter()
+_LTS_LOCK = threading.Lock()
+
+
 class LTSSyncResult(NamedTuple):
     detected: torch.Tensor
     lts_start: torch.Tensor
@@ -621,7 +629,7 @@ class LTSDetector(nn.Module):
     the earliest tap within 0.6x of the peak (late lock under multipath is
     outside the CP's safe zone).  CFO from the phase between the two LTS
     repeats.  Buffer: the conjugated spectrum of the LTS template mixed from
-    t = 0 (``lts_fft``).
+    t = 0 (``lts_fft``).  Every search counts in :data:`LTS_SEARCHES`.
     """
 
     def __init__(self, cfg: OFDMConfig, num_samples: int, threshold: float = 0.5,
@@ -654,7 +662,11 @@ class LTSDetector(nn.Module):
             return LTSSyncResult(torch.zeros(shape, dtype=torch.bool, device=dev),
                                  torch.full(shape, -1, dtype=torch.int32, device=dev), f, f,
                                  torch.full(shape, 2, dtype=torch.int32, device=dev))
-        res = self._search(samples.reshape(-1, self.n).float())
+        x = samples.reshape(-1, self.n).float()
+        with _LTS_LOCK:
+            LTS_SEARCHES["searches"] += 1
+            LTS_SEARCHES["windows"] += x.shape[0]
+        res = self._search(x)
         return LTSSyncResult(*(v.reshape(shape) for v in res))
 
     def _search(self, x: torch.Tensor) -> LTSSyncResult:
@@ -662,53 +674,58 @@ class LTSDetector(nn.Module):
         n, L = self.n, self.L
         sym = cfg.symbol_samples
         dev = x.device
-        X = torch.fft.fft(x.to(torch.complex64), self.nfft)
-        xc = torch.fft.ifft(X * self.lts_fft)[:, : max(n - L, 1)]
-        e = _sliding(torch.square(x), L)[:, : xc.shape[-1]]
-        # -60 dB energy floor (digital silence must not mint corr > 1 peaks).
-        e_floor = 1e-6 * torch.amax(e, dim=-1, keepdim=True)
-        corr = torch.abs(xc) / torch.sqrt(
-            torch.clamp_min(torch.maximum(e, e_floor) * self.ref_energy, 1e-12))
-        last = corr.shape[-1] - 1
+        # The squares open the search and the decision closes it outside the
+        # spans of its parts, as in the Schmidl-Cox search: the caller's
+        # ``rx.sync`` keeps a device-side range over the whole search.
+        x2 = torch.square(x)
+        with span("sync.coarse"):
+            X = torch.fft.fft(x.to(torch.complex64), self.nfft)
+            xc = torch.fft.ifft(X * self.lts_fft)[:, : max(n - L, 1)]
+            e = _sliding(x2, L)[:, : xc.shape[-1]]
+            # -60 dB energy floor (digital silence must not mint corr > 1 peaks).
+            e_floor = 1e-6 * torch.amax(e, dim=-1, keepdim=True)
+            corr = torch.abs(xc) / torch.sqrt(
+                torch.clamp_min(torch.maximum(e, e_floor) * self.ref_energy, 1e-12))
+        with span("sync.fine"):
+            last = corr.shape[-1] - 1
+            above = corr > self.threshold
+            first = _first_true(above)
+            local = torch.clamp_max(first[:, None] + torch.arange(sym, device=dev), last)
+            lvals = torch.gather(corr, 1, local)
+            pos = _take(local, torch.argmax(lvals, dim=-1))
+            pos = torch.where(above.any(dim=-1), pos, torch.argmax(corr, dim=-1))
+            val = _take(corr, pos)
+            for _ in range(2):
+                prev_pos = torch.clamp_min(pos - sym, 0)
+                prev_val = _take(corr, prev_pos)
+                take_prev = (pos >= sym) & (prev_val >= val * 0.92)
+                pos = torch.where(take_prev, prev_pos, pos)
+                val = torch.where(take_prev, prev_val, val)
+            det = val > self.threshold
 
-        above = corr > self.threshold
-        first = _first_true(above)
-        local = torch.clamp_max(first[:, None] + torch.arange(sym, device=dev), last)
-        lvals = torch.gather(corr, 1, local)
-        pos = _take(local, torch.argmax(lvals, dim=-1))
-        pos = torch.where(above.any(dim=-1), pos, torch.argmax(corr, dim=-1))
-        val = _take(corr, pos)
-        for _ in range(2):
-            prev_pos = torch.clamp_min(pos - sym, 0)
-            prev_val = _take(corr, prev_pos)
-            take_prev = (pos >= sym) & (prev_val >= val * 0.92)
-            pos = torch.where(take_prev, prev_pos, pos)
-            val = torch.where(take_prev, prev_val, val)
-        det = val > self.threshold
+            # First-significant-tap refinement: the earliest lag within one echo
+            # span (48 samples) whose correlation clears 0.6x the peak, then its
+            # local lobe maximum (12 samples).
+            offs = torch.arange(-48, 1, device=dev)
+            widx = torch.clamp(pos[:, None] + offs, 0, last)
+            strong = torch.gather(corr, 1, widx) >= 0.6 * val[:, None]
+            edge = _take(widx, _first_true(strong))
+            lidx = torch.clamp(edge[:, None] + torch.arange(12, device=dev), 0, last)
+            refined = _take(lidx, torch.argmax(torch.gather(corr, 1, lidx), dim=-1))
+            refined = torch.minimum(refined, pos)
+            pos = torch.where(det, refined, pos)
+            val = _take(corr, pos)
 
-        # First-significant-tap refinement: the earliest lag within one echo
-        # span (48 samples) whose correlation clears 0.6x the peak, then its
-        # local lobe maximum (12 samples).
-        offs = torch.arange(-48, 1, device=dev)
-        widx = torch.clamp(pos[:, None] + offs, 0, last)
-        strong = torch.gather(corr, 1, widx) >= 0.6 * val[:, None]
-        edge = _take(widx, _first_true(strong))
-        lidx = torch.clamp(edge[:, None] + torch.arange(12, device=dev), 0, last)
-        refined = _take(lidx, torch.argmax(torch.gather(corr, 1, lidx), dim=-1))
-        refined = torch.minimum(refined, pos)
-        pos = torch.where(det, refined, pos)
-        val = _take(corr, pos)
-
-        # CFO from the inter-repeat phase of the two LTS symbols.
-        pos2 = torch.clamp_max(pos + sym, xc.shape[-1] - 1)
-        xc1, xc2 = _take(xc, pos), _take(xc, pos2)
-        val2 = _take(corr, pos2)
-        dphi = torch.angle(xc2 * torch.conj(xc1))
-        cfo = _rdiv(dphi * cfg.sample_rate, 2.0 * np.pi * sym)
-        cfo = torch.where(val2 >= 0.5 * val, cfo, 0.0)
-        # Burst marker: a third LTS repeat.
-        val3 = _take(corr, torch.clamp_max(pos + 2 * sym, last))
-        repeats = torch.where(val3 >= 0.5 * val, 3, 2).to(torch.int32)
+            # CFO from the inter-repeat phase of the two LTS symbols.
+            pos2 = torch.clamp_max(pos + sym, xc.shape[-1] - 1)
+            xc1, xc2 = _take(xc, pos), _take(xc, pos2)
+            val2 = _take(corr, pos2)
+            dphi = torch.angle(xc2 * torch.conj(xc1))
+            cfo = _rdiv(dphi * cfg.sample_rate, 2.0 * np.pi * sym)
+            cfo = torch.where(val2 >= 0.5 * val, cfo, 0.0)
+            # Burst marker: a third LTS repeat.
+            val3 = _take(corr, torch.clamp_max(pos + 2 * sym, last))
+            repeats = torch.where(val3 >= 0.5 * val, 3, 2).to(torch.int32)
         pos = pos.to(torch.int32)
         return LTSSyncResult(det, torch.where(det, pos, -1).to(torch.int32), val, cfo, repeats)
 
