@@ -50,19 +50,32 @@ and raising on failure:
    bit; each kernel's device µs beside its bound from the bytes and the
    share of it, and a refinement with the median on the card with the
    kernels and with the plain path;
+3f. the light preamble's LTS search's kernels (``csrc/lts_search.cu``)
+   against the plain search (``LTSDetector.search_plain``) on the card, at
+   the light cell's shape (1,024 windows of 48,000 samples, DQPSK with 6
+   pilots): all five outputs equal bit for bit; each kernel's device µs
+   beside its bound from the bytes and the share of it, the whole search's
+   ms on the card beside the plain search's;
 4. main path: the MC-DPSK RX chain at the bench.py chain-1 geometry (64
    channels, window 207,328, R1/4, 4 codewords, 10 dB AWGN) from the port's
    own TX, checked against the transmitted bits and against the same chain
    on the CPU, with K1's launch count from that run, exactly one launch
    of the window pass, two of each refinement kernel and one median, and
-   no Schmidl-Cox search on the card;
+   no Schmidl-Cox or LTS search on the card;
 4b. OFDM chains: bench.py's chains 2 and 3 (north-star configs #3, DQPSK
    R1/2 at 15 dB, window 42,720, and #4, QAM64 R3/4 at 25 dB, window
    26,160; 64 channels each) from the port's own TX, each call one
    Schmidl-Cox search through the kernels (``launch_count("sc_coarse")``)
    and one demap (``launch_count("ofdm_demap")``): all detected,
    cw_decode_rate >= 0.95, bits equal to those sent, one K1 launch and no K2
-   launch in the call, and the same chain on the CPU equal;
+   launch in the call, no LTS search, and the same chain on the CPU equal;
+   and the light chain (``preamble="lts"``; config #3 with 6 pilots, R1/2
+   at 15 dB) at the light cell's shape (1,024 channels of 48,000 samples,
+   leads in [0, 16000)), whose call launches each LTS search kernel once
+   (``launch_count("lts_front")``, the ``lts_search`` entry's launches):
+   all detected within 16 samples of the lead, cw_decode_rate >= 0.95,
+   bits equal to those sent, no Schmidl-Cox search and no K2 launch, and
+   its detected, start and CFO equal to the plain search's on the card;
 4c. single-frame waveform paths (``ria_tpu_torch.tools.waveform_paths``), 64
    channels each from the port's own TX: OTFS EQ and OTFS raw-DD (ZC sync,
    one R1/4 codeword, window 48,000, 18 dB), DQPSK (Barker sync, window
@@ -671,6 +684,163 @@ def chirp_fine_phase(card: str, dev: torch.device) -> dict:
             "ms": main["stage_ms"], "plain_ms": main["plain_ms"], "bound_us": bound_us,
             "bound_ms": bound_us / 1e3, "bound_by": "bytes", "library_ms": None,
             "by_cell": by_cell}
+
+
+def lts_windows(cfg, B: int, n: int, dev: torch.device, seed: int) -> torch.Tensor:
+    """[B, n] float32 windows on the card: a light-preamble frame of the
+    port's TX at a lead in each row at 15 dB, every 5th row noise alone,
+    every 7th all zeros."""
+    from ria_tpu_torch.wave import ofdm
+
+    rng = np.random.default_rng(seed)
+    frames = [ofdm.tx_frame(rng.integers(0, 2, 4 * 648), cfg, "lts",
+                            tx_cfo_hz=float(rng.uniform(-20.0, 20.0))) for _ in range(4)]
+    x = np.zeros((B, n), np.float32)
+    for b in range(B):
+        f = frames[b % 4]
+        if b % 5 != 4:
+            lead = int(rng.integers(0, n - len(f) + 1))
+            x[b, lead : lead + len(f)] = f
+    x += rng.standard_normal((B, n), dtype=np.float32) * np.float32(
+        np.sqrt(np.mean(frames[0] ** 2)) / np.sqrt(10.0 ** 1.5))
+    x[3::7] = 0.0
+    return torch.as_tensor(x, device=dev)
+
+
+def lts_search_phase(card: str, dev: torch.device) -> dict:
+    """Phase 3f: the LTS search's kernels against the plain search on the
+    card and timed, at the light cell's shape; returns their ``kernels``
+    entry."""
+    from ria_tpu_torch.utils.timing import cuda_ms, kernel_us
+    from ria_tpu_torch.wave import ofdm
+
+    cfg = ofdm.OFDMConfig(modulation="DQPSK", use_pilots=True, pilot_spacing=10)
+    B, n = 1024, 48000
+    det = ofdm.LTSDetector(cfg, n, 0.5, dev)
+    x = lts_windows(cfg, B, n, dev, seed=B)
+    got, want = det(x), det.search_plain(x)
+    torch.cuda.synchronize()
+    for name, g, w in zip(ofdm.LTSSyncResult._fields, got, want):
+        gb, wb = (t.view(torch.int32) if t.dtype == torch.float32 else t for t in (g, w))
+        if not torch.equal(gb, wb):
+            raise AssertionError(f"the LTS search kernels' {name} differs from the plain "
+                                 f"search in {int((gb != wb).sum())} of {B} rows")
+    nfft, lags = det.nfft, n - det.L
+    # Each input byte read once, each output byte written once.
+    io = {"lts_pad": 8 * B * (nfft - n),
+          "lts_front": B * (4 * n + 8 * n + 4 * lags + 4),
+          "lts_pick": B * (8 * lags + 4 * lags + 4 + 20),
+          "lts_decide": B * (8 + 5)}
+    kernels = {}
+    for name, nbytes in io.items():
+        us, how = kernel_us(lambda: det(x), f"{name}_kernel")
+        bound = nbytes / HBM_BYTES_PER_S * 1e6
+        kernels[name] = {"device_us": us, "bound_us": bound, "bytes": nbytes}
+        log(f"[3f lts_search] B={B} n={n}: {name} {us:.2f} us per launch ({how}), "
+            f"bound {bound:.2f} us ({nbytes / 1e6:.3f} MB), {bound / us:.1%} of it ({card})")
+    search = cuda_ms(lambda: det(x), reps=20)
+    plain = cuda_ms(lambda: det.search_plain(x), reps=10)
+    log(f"[3f lts_search] B={B} n={n}: the search {search[0]:.4f} ms a call on the card (min "
+        f"{search[1]:.4f}, max {search[2]:.4f}), the plain search {plain[0]:.4f} ms (min "
+        f"{plain[1]:.4f}, max {plain[2]:.4f}); five outputs equal bit for bit, "
+        f"{int(got.detected.sum())}/{B} detected ({card})")
+    device_us = sum(k["device_us"] for k in kernels.values())
+    bound_us = sum(k["bound_us"] for k in kernels.values())
+    # ``launches`` and ``launches_per_call`` come from the light chain (4b).
+    return {"name": "lts_search", "route": "cuda", "source": "ria_tpu_torch/csrc/lts_search.cu",
+            "replaces": None, "launches_per_call": None, "device_us": device_us,
+            "ms": search[0], "plain_ms": plain[0], "bound_us": bound_us,
+            "bound_ms": bound_us / 1e3, "bound_by": "bytes", "library_ms": None,
+            "kernels": kernels, "B": B, "n": n}
+
+
+LTS_ENTRIES = ("lts_pad", "lts_front", "lts_pick", "lts_decide")
+
+
+def lts_launches() -> list[int]:
+    """The LTS search's kernels' launches since the counts were last zeroed."""
+    return [launch_count(name) for name in LTS_ENTRIES]
+
+
+def light_chain_phase(dev: torch.device, lts_entry: dict) -> None:
+    """Phase 4b's light chain: ``make_ofdm_rx_pipeline(..., preamble="lts")``
+    at the light cell's shape, one call from the port's own TX, its LTS
+    search through the kernels once; sets ``lts_entry``'s launches from that
+    call."""
+    from ria_tpu_torch.entry import FRAME_CODEWORDS
+    from ria_tpu_torch.fec.ldpc_matrix import get_code
+    from ria_tpu_torch.phy.frame_v2 import encode_fixed_frame
+    from ria_tpu_torch.phy.pipeline import make_ofdm_rx_pipeline
+    from ria_tpu_torch.utils.bits import bytes_to_bits
+    from ria_tpu_torch.wave import ofdm
+
+    # Config #3 with 6 pilots behind the light preamble, R1/2, 15 dB; 1,024
+    # channels of 48,000 samples, leads in [0, 16000), 8 distinct frames.
+    cfg = ofdm.OFDMConfig(modulation="DQPSK", use_pilots=True, pilot_spacing=10)
+    rate, ci_bits, B, n, max_lead, snr_db = "R1_2", 106, 1024, 48000, 16000, 15.0
+    k = get_code(rate).k
+    bpc = k // 8
+    rng = np.random.default_rng(B)
+    pool = []
+    for _ in range(8):
+        payload = rng.integers(0, 256, FRAME_CODEWORDS * bpc).astype(np.uint8)
+        info = np.zeros((FRAME_CODEWORDS, k), np.uint8)
+        info[:, : 8 * bpc] = bytes_to_bits(payload).reshape(FRAME_CODEWORDS, 8 * bpc)
+        pool.append((ofdm.tx_frame(encode_fixed_frame(payload.tobytes(), rate, ci_bits), cfg,
+                                   preamble="lts"), info))
+    leads = rng.integers(0, max_lead, B)
+    audio = np.zeros((B, n), np.float32)
+    sent = np.zeros((B, FRAME_CODEWORDS, k), np.uint8)
+    for b in range(B):
+        tx, sent[b] = pool[b % len(pool)]
+        audio[b, leads[b] : leads[b] + len(tx)] = tx
+    rms = float(np.sqrt(np.mean(pool[0][0] ** 2)))
+    audio += rng.standard_normal(audio.shape, dtype=np.float32) * np.float32(
+        rms * 10 ** (-snr_db / 20))
+    audio = torch.as_tensor(audio, device=dev)
+
+    lrx = make_ofdm_rx_pipeline(cfg, rate, n, ci_bits, device=dev, preamble="lts")
+    torch.cuda.synchronize()
+    zero_counts()
+    out = lrx(audio)
+    torch.cuda.synchronize()
+    launched = dict(zip(LTS_ENTRIES, lts_launches()))
+    decodes = (launch_count(K1), k2_launches())
+    tag = f"[4b light] config #3 DQPSK R1_2 with 6 pilots at {snr_db:g} dB, B={B} window={n}"
+    det = out.detected.cpu().numpy()
+    ok = out.cw_success.cpu().numpy()
+    gap = np.abs(out.lts_start.cpu().numpy().astype(np.int64) - leads)
+    log(f"{tag}: detected {int(det.sum())}/{B}, max |start - lead| {int(gap.max())}, "
+        f"cw_decode_rate {ok.mean():.4f}, LTS kernel launches {launched}, "
+        f"Schmidl-Cox searches {launch_count('sc_coarse')}, K1 launches {decodes[0]}, "
+        f"K2 launches {decodes[1]}")
+    if list(launched.values()) != [1] * len(LTS_ENTRIES):
+        raise AssertionError(f"the light chain launched the LTS search's kernels {launched}; "
+                             "each once expected")
+    if launch_count("sc_coarse"):
+        raise AssertionError("the light chain ran a Schmidl-Cox search")
+    if decodes[0] < 1 or decodes[1]:
+        raise AssertionError(f"the light chain launched K1 {decodes[0]} and K2 {decodes[1]} "
+                             "times; at least 1 and 0 expected")
+    if not det.all() or gap.max() > 16:
+        raise AssertionError(f"{int(det.sum())}/{B} channels detected, max |start - lead| "
+                             f"{int(gap.max())}; all, and at most 16, expected")
+    if ok.mean() < 0.95:
+        raise AssertionError(f"cw_decode_rate {ok.mean():.4f} < 0.95")
+    if not (out.info_bits.cpu().numpy() == sent)[ok].all():
+        raise AssertionError("decoded info bits differ from the transmitted bits")
+    # The chain's search is the plain search's, bit for bit, on the card.
+    plain = lrx.sync.search_plain(audio)
+    for name in ("detected", "lts_start", "cfo_hz"):
+        got, want = getattr(out, name), getattr(plain, name)
+        if want.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        if not torch.equal(got, want):
+            raise AssertionError(f"the light chain's {name} differs from the plain search's on "
+                                 "the card")
+    log(f"{tag}: detected/lts_start/cfo_hz equal to the plain search's on the card bit for bit")
+    lts_entry["launches"] = launched["lts_front"]
+    lts_entry["launches_per_call"] = launched["lts_front"]
 
 
 def run_cli(argv: list[str]) -> tuple[int, str, str]:
@@ -1863,6 +2033,9 @@ def main() -> int:
     # -- 3e. the chirp search's fine stage -----------------------------------------
     fine_entry = chirp_fine_phase(card, dev)
 
+    # -- 3f. the light preamble's LTS search's kernels ----------------------------
+    lts_entry = lts_search_phase(card, dev)
+
     # -- 4. main path ---------------------------------------------------------
     cfg, ncw, batch, window = geometry(production=True)
     audio, info = _make_batch(cfg, ncw, batch, window, seed=0, production=True, device=dev)
@@ -1876,6 +2049,8 @@ def main() -> int:
                              f"{launch_count('zoom_front')} times; 1 expected")
     if launch_count("sc_coarse"):
         raise AssertionError("the MC-DPSK main path ran a Schmidl-Cox search")
+    if any(lts_launches()):
+        raise AssertionError("the MC-DPSK main path ran an LTS search")
     fine = [launch_count(e) for e in ("chirp_refine_front", "chirp_refine_pick", "median_select")]
     if fine != [2, 2, 1]:
         raise AssertionError(f"the main path launched the fine stage's kernels {fine} times; "
@@ -1933,6 +2108,8 @@ def main() -> int:
         if launch_count("ofdm_demap") != 1:
             raise AssertionError(f"the OFDM chain launched the demap kernel "
                                  f"{launch_count('ofdm_demap')} times; 1 expected")
+        if any(lts_launches()):
+            raise AssertionError("the Schmidl-Cox chain ran an LTS search")
         sc_entry["launches"] = launch_count("sc_coarse")
         demap_entry["launches"] = launch_count("ofdm_demap")
         det = o_out.detected.cpu().numpy()
@@ -1966,6 +2143,7 @@ def main() -> int:
         if cfo_err > 1e-3 or snr_err > 1e-3:
             raise AssertionError(f"cfo_hz or snr_db differs between the card and the CPU ({path})")
         ofdm[path] = (geom, orx, o_audio, o_launches)
+    light_chain_phase(dev, lts_entry)
 
     # -- 4c. single-frame waveform paths --------------------------------------
     wpaths = {}
@@ -2536,6 +2714,7 @@ def main() -> int:
     kernels.append(sc_entry)
     kernels.append(demap_entry)
     kernels.append(fine_entry)
+    kernels.append(lts_entry)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": torch.cuda.device_count()}}))

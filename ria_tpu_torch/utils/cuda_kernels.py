@@ -35,7 +35,7 @@ _CSRC = Path(__file__).resolve().parents[1] / "csrc"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # Each library: (source, extra nvcc flags).  ``zoom_front``, ``sc_search``,
-# ``ofdm_demap`` and ``chirp_fine`` link the shared CUDA runtime, the one
+# ``ofdm_demap``, ``chirp_fine`` and ``lts_search`` link the shared CUDA runtime, the one
 # PyTorch has loaded: their kernels open or fill the chains' spans'
 # device-side ranges in a profile, and a profile taken late in a process
 # missed launches made through a runtime linked into the library itself
@@ -49,6 +49,7 @@ LIBRARIES = {
     "sc_search": (_CSRC / "sc_search.cu", ("-cudart", "shared")),
     "ofdm_demap": (_CSRC / "ofdm_demap.cu", ("-cudart", "shared")),
     "chirp_fine": (_CSRC / "chirp_fine.cu", ("-cudart", "shared")),
+    "lts_search": (_CSRC / "lts_search.cu", ("-cudart", "shared")),
 }
 
 _LOAD_LOCK = threading.Lock()

@@ -52,7 +52,7 @@ from torch import nn
 
 from ria_tpu_torch.dsp.hilbert import analytic_signal
 from ria_tpu_torch.dsp.util import _cis, _first_true, _rdiv, _sliding
-from ria_tpu_torch.sync import sc_kernel
+from ria_tpu_torch.sync import lts_kernel, sc_kernel
 from ria_tpu_torch.sync.chirp import window_slice
 from ria_tpu_torch.utils.device import resolve_device
 from ria_tpu_torch.utils.mt19937 import MT19937
@@ -389,6 +389,13 @@ _SC_RR_MIN = 1e-20     # the least R1 R2
 _LTS_E_MIN = 1e-12     # the least slice energy times the template's
 _LTS_PREV = 0.92       # the 92% rule
 _LTS_R_MIN = 1e-12     # the least |r| that gives a fine CFO
+# The light preamble's LTS search's own scalars (``LTSDetector``), beside
+# ``_LTS_E_MIN`` and ``_LTS_PREV``, which it shares.
+_LTS_FLOOR = 1e-6      # the -60 dB energy floor: digital silence mints no corr > 1 peak
+_LTS_TAP = 0.6         # the first significant tap's least share of the peak
+_LTS_ECHO = 48         # lags before the peak searched for it: one echo span
+_LTS_LOBE = 12         # lags of its lobe searched for the maximum
+_LTS_REPEAT = 0.5      # a repeat's least share of the peak: the CFO's gate, the burst marker
 
 
 def _lts_threshold(cfg: OFDMConfig) -> float:
@@ -417,6 +424,18 @@ def sc_consts(cfg: OFDMConfig, ref_energy: float) -> np.ndarray:
         rot_sym.real, rot_sym.imag, spacing, one / np.float32(2.0 * np.pi),
         one / np.float32(spacing), _LTS_R_MIN,
         cfg.sync_threshold, _lts_threshold(cfg),
+    ], dtype=np.float32)
+
+
+def lts_consts(cfg: OFDMConfig, ref_energy: float, threshold: float, nfft: int) -> np.ndarray:
+    """The LTS search's scalars for its kernels (``enum Const`` of
+    ``csrc/lts_search.cu``), float32 as ATen rounds them in the plain search:
+    a Python scalar that meets a float32 tensor, ``_rdiv``'s divisor as the
+    float32 reciprocal, and the inverse FFT's 1 / nfft."""
+    return np.array([
+        _LTS_FLOOR, ref_energy, _LTS_E_MIN, _LTS_PREV, _LTS_TAP, _LTS_REPEAT, threshold,
+        cfg.sample_rate, np.float32(1.0) / np.float32(2.0 * np.pi * cfg.symbol_samples),
+        1.0 / nfft,
     ], dtype=np.float32)
 
 
@@ -628,8 +647,13 @@ class LTSDetector(nn.Module):
     first LTS repeat (92% rule, twice, for 3-repeat burst preambles), then to
     the earliest tap within 0.6x of the peak (late lock under multipath is
     outside the CP's safe zone).  CFO from the phase between the two LTS
-    repeats.  Buffer: the conjugated spectrum of the LTS template mixed from
-    t = 0 (``lts_fft``).  Every search counts in :data:`LTS_SEARCHES`.
+    repeats.  Buffers: the conjugated spectrum of the LTS template mixed from
+    t = 0 (``lts_fft``) and the search's scalars for its kernels
+    (``lts_consts``).  A CUDA tensor is searched by the CUDA kernels of
+    ``sync/lts_kernel.py`` (loaded here on a CUDA device, so that the first
+    call pays nothing for them), a CPU tensor by :meth:`search_plain`; the
+    two agree bit for bit on the card.  Every search counts in
+    :data:`LTS_SEARCHES`.
     """
 
     def __init__(self, cfg: OFDMConfig, num_samples: int, threshold: float = 0.5,
@@ -651,6 +675,12 @@ class LTSDetector(nn.Module):
         self.nfft = 1 << (num_samples + L - 1).bit_length()
         spec = torch.fft.fft(torch.as_tensor(lts_analytic, device=dev), self.nfft)
         self.register_buffer("lts_fft", torch.conj(spec).resolve_conj())
+        self.register_buffer("lts_consts", torch.as_tensor(
+            lts_consts(cfg, self.ref_energy, threshold, self.nfft), device=dev))
+        # The first-tap refinement's spans, for the kernels' launch.
+        self.refine_lags = (_LTS_ECHO, _LTS_LOBE)
+        if dev.type == "cuda":
+            lts_kernel.load()
 
     def forward(self, samples: torch.Tensor) -> LTSSyncResult:
         shape = samples.shape[:-1]
@@ -666,10 +696,12 @@ class LTSDetector(nn.Module):
         with _LTS_LOCK:
             LTS_SEARCHES["searches"] += 1
             LTS_SEARCHES["windows"] += x.shape[0]
-        res = self._search(x)
+        res = lts_kernel.search(self, x) if x.is_cuda else self.search_plain(x)
         return LTSSyncResult(*(v.reshape(shape) for v in res))
 
-    def _search(self, x: torch.Tensor) -> LTSSyncResult:
+    def search_plain(self, x: torch.Tensor) -> LTSSyncResult:
+        """The search in PyTorch operations over x [B, n] float32: what CPU
+        tensors run, and what the kernels compute on the card."""
         cfg = self.cfg
         n, L = self.n, self.L
         sym = cfg.symbol_samples
@@ -683,9 +715,9 @@ class LTSDetector(nn.Module):
             xc = torch.fft.ifft(X * self.lts_fft)[:, : max(n - L, 1)]
             e = _sliding(x2, L)[:, : xc.shape[-1]]
             # -60 dB energy floor (digital silence must not mint corr > 1 peaks).
-            e_floor = 1e-6 * torch.amax(e, dim=-1, keepdim=True)
+            e_floor = _LTS_FLOOR * torch.amax(e, dim=-1, keepdim=True)
             corr = torch.abs(xc) / torch.sqrt(
-                torch.clamp_min(torch.maximum(e, e_floor) * self.ref_energy, 1e-12))
+                torch.clamp_min(torch.maximum(e, e_floor) * self.ref_energy, _LTS_E_MIN))
         with span("sync.fine"):
             last = corr.shape[-1] - 1
             above = corr > self.threshold
@@ -698,7 +730,7 @@ class LTSDetector(nn.Module):
             for _ in range(2):
                 prev_pos = torch.clamp_min(pos - sym, 0)
                 prev_val = _take(corr, prev_pos)
-                take_prev = (pos >= sym) & (prev_val >= val * 0.92)
+                take_prev = (pos >= sym) & (prev_val >= val * _LTS_PREV)
                 pos = torch.where(take_prev, prev_pos, pos)
                 val = torch.where(take_prev, prev_val, val)
             det = val > self.threshold
@@ -706,11 +738,11 @@ class LTSDetector(nn.Module):
             # First-significant-tap refinement: the earliest lag within one echo
             # span (48 samples) whose correlation clears 0.6x the peak, then its
             # local lobe maximum (12 samples).
-            offs = torch.arange(-48, 1, device=dev)
+            offs = torch.arange(-_LTS_ECHO, 1, device=dev)
             widx = torch.clamp(pos[:, None] + offs, 0, last)
-            strong = torch.gather(corr, 1, widx) >= 0.6 * val[:, None]
+            strong = torch.gather(corr, 1, widx) >= _LTS_TAP * val[:, None]
             edge = _take(widx, _first_true(strong))
-            lidx = torch.clamp(edge[:, None] + torch.arange(12, device=dev), 0, last)
+            lidx = torch.clamp(edge[:, None] + torch.arange(_LTS_LOBE, device=dev), 0, last)
             refined = _take(lidx, torch.argmax(torch.gather(corr, 1, lidx), dim=-1))
             refined = torch.minimum(refined, pos)
             pos = torch.where(det, refined, pos)
@@ -722,10 +754,10 @@ class LTSDetector(nn.Module):
             val2 = _take(corr, pos2)
             dphi = torch.angle(xc2 * torch.conj(xc1))
             cfo = _rdiv(dphi * cfg.sample_rate, 2.0 * np.pi * sym)
-            cfo = torch.where(val2 >= 0.5 * val, cfo, 0.0)
+            cfo = torch.where(val2 >= _LTS_REPEAT * val, cfo, 0.0)
             # Burst marker: a third LTS repeat.
             val3 = _take(corr, torch.clamp_max(pos + 2 * sym, last))
-            repeats = torch.where(val3 >= 0.5 * val, 3, 2).to(torch.int32)
+            repeats = torch.where(val3 >= _LTS_REPEAT * val, 3, 2).to(torch.int32)
         pos = pos.to(torch.int32)
         return LTSSyncResult(det, torch.where(det, pos, -1).to(torch.int32), val, cfo, repeats)
 

@@ -161,16 +161,16 @@ def test_library_names_keep_their_recipe():
     """Each library's file name is ``<stem>_<sha256 of the source's bytes, the
     bytes of the header it includes, if any, and its flags joined by spaces,
     16 hex digits>.so``, with today's flags, so that a library built before
-    keeps its name and an edit of the shared header renames both libraries
-    that include it."""
+    keeps its name and an edit of the shared header renames every library
+    that includes it."""
     nvcc = ("-gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC "
             "-Xptxas -v")
     want = {name: (src, " ".join((nvcc, *defines)))
             for name, (src, defines) in cuda_kernels.LIBRARIES.items()}
-    assert len(want) == 8
+    assert len(want) == 9
     header = (ROOT / "ria_tpu_torch" / "csrc" / "aten_order.cuh").read_bytes()
     for name, (src, flags) in want.items():
-        headers = header if name in ("sc_search", "chirp_fine") else b""
+        headers = header if name in ("sc_search", "chirp_fine", "lts_search") else b""
         digest = hashlib.sha256(src.read_bytes() + headers + flags.encode()).hexdigest()[:16]
         assert cuda_kernels.library_path(src, cuda_kernels.LIBRARIES[name][1]) == (
             ROOT / "build" / "ria_tpu_torch" / f"{src.stem}_{digest}.so"), name
